@@ -6,11 +6,14 @@ port imports ``torch`` and never ``jax``: plain tensor code is PyTorch, and
 each Pallas kernel of the reference becomes a CUDA C++ kernel for Hopper
 (``sm_90a``) under ``csrc/``, built at its first launch (``kernels/``).
 
-What runs today: ``models.stereo.StereoModel(backend="hierarchical-pallas")``
-with SAD/SSD costs and no LR check — grayscale, the image pyramid, the fused
-exhaustive matcher at the coarsest level (``match.fused_dense``), the
-tile-base refine kernel at every finer level (``match.fused_refine``) and the
-3×3 median (``match.fused_post``).
+What runs today: ``models.stereo.StereoModel`` with the backends
+``"hierarchical-pallas"`` (SAD, SSD or census cost, with or without
+``lr_check``: grayscale, the image pyramid, the fused exhaustive matcher at
+the coarsest level in ``match.fused_dense``, the tile-base refine kernel at
+every finer level in ``match.fused_refine``, then the LR check, the
+occlusion fill and the 3×3 median in ``match.fused_post``), ``"pallas"``
+(the exhaustive matcher at full resolution, ``flagship()``) and ``"dense"``
+(plain torch), plus ``batched()`` and the temporally seeded ``video()``.
 
 Every function takes its device from its input tensors. A tensor on the CPU
 runs each kernel's plain PyTorch version; a CUDA tensor launches the kernel

@@ -31,6 +31,19 @@ __device__ __forceinline__ float box_ordered(const float* p, int stride, int win
   return z;
 }
 
+// Census cost: Hamming distance between the int32 descriptor planes
+// [P, H, W] of the left image at (row, xl) and the right image at (row, xr);
+// `plane` is H * W and `row` the row's offset y * W.
+__device__ __forceinline__ int hamming(const int* __restrict__ lc,
+                                       const int* __restrict__ rc, int nplanes,
+                                       size_t plane, size_t row, int xl, int xr) {
+  int ham = 0;
+  for (int p = 0; p < nplanes; ++p) {
+    ham += __popc((unsigned)(lc[p * plane + row + xl] ^ rc[p * plane + row + xr]));
+  }
+  return ham;
+}
+
 // In-image test for a cost row: local row y of an input that starts at
 // global row g_row0 of an image g_h rows tall (a row shard carries halo
 // rows that lie outside the global image).

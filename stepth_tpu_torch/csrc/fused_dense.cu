@@ -2,12 +2,16 @@
 //
 // Replaces: stepth_tpu/match/pallas_dense.py, `_kernel` (called through
 // `raw_match`). Same output contract: per pixel, over all d < D, the SAD/SSD
-// cost against the right image sampled at x-d (edge-replicated for x-d < 0),
+// cost against the right image sampled at x-d (edge-replicated for x-d < 0)
+// or, with nplanes > 0, the census Hamming distance sum_p popc(l ^ r) of
+// int32 descriptor planes [P, H, W] (column 0's descriptor for x-d < 0),
 // a zero-padded win x win box sum, a first-minimum WTA (strict <, ascending d)
 // with parabolic subpixel for best in [1, D-2], the optional uniqueness test
 // against the best cost outside +-1, and the right-view WTA
-// costR(x, d) = costL(x+d, d) (BIG where x+d > W-1). The in-kernel LR sweep is
-// not ported (the wrapper raises for lr_threshold); census comes later.
+// costR(x, d) = costL(x+d, d) (BIG where x+d > W-1). The reference's
+// in-kernel LR sweep reads the right-view disparity of every column of the
+// row, which a block does not hold: the wrapper runs K4 after this kernel.
+// Hamming costs are integers <= 32 P, so their box sums are exact in f32.
 //
 // What bounds it on an H100: not memory — the [H, W, D] cost volume never
 // leaves the SM, and each input pixel is read from L1/L2 once per d. It is
@@ -36,6 +40,7 @@ constexpr int PPT = BH * BX / NT;  // pixels per thread
 
 __global__ void __launch_bounds__(NT) fused_dense_kernel(
     const float* __restrict__ lg, const float* __restrict__ rg,
+    const int* __restrict__ lc, const int* __restrict__ rc, int nplanes,
     float* __restrict__ disp, float* __restrict__ dispr,
     float* __restrict__ cbest, float* __restrict__ valid,
     int h, int w, int D, int win, int squared, int use_uniq, float uniq1p,
@@ -72,8 +77,13 @@ __global__ void __launch_bounds__(NT) fused_dense_kernel(
       float c = 0.f;
       if (row_in_image(y, h, g_row0, g_h) && x >= 0 && x < w) {
         const int xs = x - d < 0 ? 0 : x - d;
-        const float diff = lg[(size_t)y * w + x] - rg[(size_t)y * w + xs];
-        c = squared ? diff * diff : fabsf(diff);
+        if (nplanes) {
+          c = (float)hamming(lc, rc, nplanes, (size_t)h * w, (size_t)y * w,
+                             x, xs);
+        } else {
+          const float diff = lg[(size_t)y * w + x] - rg[(size_t)y * w + xs];
+          c = squared ? diff * diff : fabsf(diff);
+        }
       }
       C[e] = c;
     }
@@ -137,16 +147,18 @@ __global__ void __launch_bounds__(NT) fused_dense_kernel(
 }  // namespace
 
 extern "C" int stepth_fused_dense(
-    const float* lg, const float* rg, float* disp, float* dispr, float* cbest,
-    float* valid, int h, int w, int D, int win, int squared, int use_uniq,
-    float uniq1p, int g_row0, int g_h, void* stream) {
+    const float* lg, const float* rg, const int* lc, const int* rc, int nplanes,
+    float* disp, float* dispr, float* cbest, float* valid, int h, int w, int D,
+    int win, int squared, int use_uniq, float uniq1p, int g_row0, int g_h,
+    void* stream) {
   const int r = win / 2;
   const int E = BX + D - 1;
   const int QC = E + 2 * r;
   const size_t smem = sizeof(float) * ((size_t)(BH + 2 * r) * QC + BH * QC + BH * E);
   const dim3 grid((w + BX - 1) / BX, (h + BH - 1) / BH);
-  STEPTH_LAUNCH(fused_dense_kernel, grid, NT, smem, stream, lg, rg, disp, dispr,
-                cbest, valid, h, w, D, win, squared, use_uniq, uniq1p, g_row0, g_h);
+  STEPTH_LAUNCH(fused_dense_kernel, grid, NT, smem, stream, lg, rg, lc, rc,
+                nplanes, disp, dispr, cbest, valid, h, w, D, win, squared,
+                use_uniq, uniq1p, g_row0, g_h);
 }
 
 extern "C" const char* stepth_error_string(int code) {

@@ -2,11 +2,16 @@
 ``stepth_tpu/match/dense.py``).
 
 These are the reference semantics the fused kernels are held to: grayscale,
-the [H, W, D] cost volume with an edge-replicated shifted right image, the
-zero-padded box aggregation, winner-take-all with parabolic subpixel and
-uniqueness, the 3×3 median and the u8 depth scaling. Census costs, the
-right-view WTA, the LR check and the occlusion fill come with the census+LR
-slice.
+the census transform, the [H, W, D] cost volume (SAD, SSD or census Hamming)
+with an edge-replicated shifted right image, the zero-padded box aggregation,
+winner-take-all with parabolic subpixel and uniqueness, the right-view WTA,
+the LR consistency check, the scanline occlusion fill, the 3×3 median and
+the u8 depth scaling; :func:`match_pair` chains them (the ``dense``
+backend).
+
+Census descriptors are stored as **int32 bit patterns** (the reference uses
+uint32): torch has no shift for uint32 on every device, and a Hamming
+distance only needs the bits.
 """
 
 from __future__ import annotations
@@ -50,8 +55,66 @@ def grayscale(rgb, device=None) -> torch.Tensor:
     return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
 
 
+def census_planes(gray: torch.Tensor, window: int = 7) -> torch.Tensor:
+    """Census descriptors of gray [..., H, W] as int32 planes [P, ..., H, W],
+    contiguous (the layout the kernels read; a leading batch dim costs both
+    views of a pair in one pass). Bit ``i`` of plane ``p`` is neighbour
+    ``32·p + i`` in ``(dy, dx)`` row-major order with the centre skipped,
+    set where ``gray > neighbour``; neighbours outside the image are
+    edge-replicated. Bits are gathered eight neighbours per op as a sum of
+    distinct powers of two (their OR), in int32 where bit 31 weighs −2³¹:
+    the bits are the reference's uint32 bits."""
+    h, w = gray.shape[-2:]
+    r = window // 2
+    dev = gray.device
+    rows = torch.arange(-r, h + r, device=dev).clamp(0, h - 1)
+    cols = torch.arange(-r, w + r, device=dev).clamp(0, w - 1)
+    padded = gray[..., rows, :][..., cols]
+    offs = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1) if dy or dx]
+    # 1 << i as int32 bit patterns: bit 31 is int32's minimum (no shift into
+    # the sign bit)
+    i = torch.arange(32, dtype=torch.int32, device=dev)
+    weight = torch.where(i < 31, torch.ones_like(i) << i.clamp(max=30),
+                         torch.iinfo(torch.int32).min)
+    wshape = (-1,) + (1,) * gray.ndim
+    planes = []
+    for p in range(0, len(offs), 32):
+        acc = torch.zeros(gray.shape, dtype=torch.int32, device=dev)
+        for g in range(p, min(p + 32, len(offs)), 8):
+            group = offs[g : min(g + 8, p + 32, len(offs))]
+            nbs = torch.stack([padded[..., dy + r : dy + r + h, dx + r : dx + r + w]
+                               for dy, dx in group])
+            wts = weight[g - p : g - p + len(group)].reshape(wshape)
+            acc = acc + ((gray[None] > nbs) * wts).sum(0, dtype=torch.int32)
+        planes.append(acc)
+    return torch.stack(planes).contiguous()
+
+
+def census_pair(left: torch.Tensor, right: torch.Tensor, window: int = 7):
+    """Census planes [P, H, W] of both views of a pair, in one pass."""
+    planes = census_planes(torch.stack([left, right]), window)
+    return planes[:, 0].contiguous(), planes[:, 1].contiguous()
+
+
+def census_transform(gray: torch.Tensor, window: int = 7) -> torch.Tensor:
+    """Census bit strings per pixel, int32 [H, W, P] (the reference's
+    uint32 [H, W, P] bit for bit)."""
+    return census_planes(gray, window).permute(1, 2, 0)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 ``x`` as int64. A SWAR count on the value
+    widened to int64 and masked to 32 bits, so no shift ever sees a negative
+    number."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
 def _shift_right_image(img: torch.Tensor, num_disparities: int) -> torch.Tensor:
-    """[H, W, D]: out[..., d] is the right image sampled at ``x − d``,
+    """[H, W, D, ...]: out[:, x, d] is the right image sampled at ``x − d``,
     edge-replicated where ``x − d < 0``."""
     w = img.shape[1]
     x = torch.arange(w, device=img.device)[:, None]
@@ -60,11 +123,13 @@ def _shift_right_image(img: torch.Tensor, num_disparities: int) -> torch.Tensor:
 
 
 def cost_volume(left_gray, right_gray, cfg: MatchConfig) -> torch.Tensor:
-    """Per-pixel matching cost f32[H, W, D] (smaller = better)."""
+    """Per-pixel matching cost f32[H, W, D] (smaller = better): SAD, SSD or
+    the census Hamming distance summed over the planes."""
     if cfg.cost == "census":
-        raise NotImplementedError(
-            "census cost: ROADMAP slice 2 (census planes in K1/K2)"
-        )
+        cl = census_transform(left_gray, cfg.census_window)  # [H, W, P]
+        crs = _shift_right_image(census_transform(right_gray, cfg.census_window),
+                                 cfg.num_disparities)  # [H, W, D, P]
+        return popcount32(cl[:, :, None, :] ^ crs).sum(-1).to(torch.float32)
     if cfg.cost not in ("sad", "ssd"):
         raise NotImplementedError(f"cost {cfg.cost!r} unsupported")
     rs = _shift_right_image(right_gray, cfg.num_disparities)
@@ -124,6 +189,58 @@ def wta(agg: torch.Tensor, subpixel: bool = True, uniqueness: Optional[float] = 
     return disp, valid, cbest
 
 
+def right_disparity_from_volume(agg: torch.Tensor) -> torch.Tensor:
+    """Right-view disparity f32[H, W] from the left volume:
+    costR(y, x, d) = costL(y, x + d, d), first minimum over ascending d
+    (``inf`` past the right edge)."""
+    h, w, d = agg.shape
+    best = torch.full((h, w), float("inf"), dtype=agg.dtype, device=agg.device)
+    bestd = torch.zeros((h, w), dtype=torch.float32, device=agg.device)
+    for k in range(d):
+        kk = min(k, w)
+        shifted = torch.cat(
+            [agg[:, kk:, k], torch.full((h, kk), float("inf"), dtype=agg.dtype,
+                                        device=agg.device)], dim=1
+        )
+        upd = shifted < best
+        best = torch.where(upd, shifted, best)
+        bestd = torch.where(upd, float(k), bestd)
+    return bestd
+
+
+def lr_consistency(disp_l: torch.Tensor, disp_r: torch.Tensor, threshold: float,
+                   num_disparities: Optional[int] = None) -> torch.Tensor:
+    """Validity bool[H, W]: ``|dL(x) − dR(xr)| ≤ threshold`` with
+    ``xr = clip(round(x − dL), 0, W−1)``, as the reference's sweep over
+    shifts ``s < D`` selects it: for ``xr ≥ 1`` the shift ``x − xr`` must lie
+    in ``[0, D)``; for ``xr = 0`` every ``s ≥ x`` samples the edge column, so
+    ``x < D`` suffices. A closed form of the same selection (bit-equal)."""
+    h, w = disp_l.shape
+    D = w if num_disparities is None else num_disparities
+    x = torch.arange(w, dtype=torch.float32, device=disp_l.device)[None, :]
+    xr = torch.round(x - disp_l).clamp(0.0, float(w - 1))
+    shift = x - xr
+    in_range = torch.where(xr >= 1.0, (shift >= 0) & (shift < D), x < D)
+    dr_at = disp_r.gather(1, xr.to(torch.int64).clamp(0, w - 1))
+    return in_range & ((disp_l - dr_at).abs() <= threshold)
+
+
+def fill_invalid(disp: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Scanline occlusion fill: each invalid pixel takes the smaller of the
+    nearest valid disparities to its left and right (0 where there is
+    neither); valid pixels keep theirs. Selects only."""
+    h, w = disp.shape
+    x = torch.arange(w, device=disp.device)[None, :].expand(h, w)
+    li = torch.where(valid, x, -1).cummax(dim=1).values
+    ri = torch.where(valid, x, w).flip(1).cummin(dim=1).values.flip(1)
+    inf = float("inf")
+    left = torch.where(li >= 0, disp.gather(1, li.clamp(min=0)), inf)
+    right = torch.where(ri < w, disp.gather(1, ri.clamp(max=w - 1)), inf)
+    fill = torch.minimum(left, right)
+    fill = torch.where(torch.isfinite(fill), fill, 0.0)
+    return torch.where(valid, disp, fill)
+
+
 def median3(disp: torch.Tensor) -> torch.Tensor:
     """3×3 median with edge replicate: the rank-5 element of the sorted
     9-neighbourhood."""
@@ -143,3 +260,18 @@ def disparity_to_depth_u8(disp: torch.Tensor, num_disparities: int) -> torch.Ten
     closer): linear from [0, D−1] to [0, 255]."""
     d = disp.clamp(0.0, float(num_disparities - 1))
     return torch.round(d * (255.0 / float(num_disparities - 1))).to(torch.uint8)
+
+
+def match_pair(left, right, cfg: MatchConfig = MatchConfig(), device=None) -> MatchResult:
+    """The full dense matcher on a rectified pair (the ``dense`` backend):
+    cost volume, box aggregation, WTA, the optional LR check against the
+    right-view disparity of the same volume, occlusion fill and median."""
+    lg = grayscale(left, device)
+    rg = grayscale(right, device)
+    agg = box_aggregate(cost_volume(lg, rg, cfg), cfg.window)
+    disp, valid, cbest = wta(agg, cfg.subpixel, cfg.uniqueness)
+    if cfg.lr_threshold is not None:
+        disp_r = right_disparity_from_volume(agg)
+        valid = valid & lr_consistency(disp, disp_r, cfg.lr_threshold, cfg.num_disparities)
+    disp = median3(fill_invalid(disp, valid))
+    return MatchResult(disparity=disp, valid=valid, cost=cbest)

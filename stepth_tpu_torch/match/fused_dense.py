@@ -4,12 +4,19 @@
 :func:`raw_match` launches the CUDA kernel for CUDA tensors and runs
 :func:`raw_match_plain` for CPU tensors. Both compute, per pixel and over all
 ``d < D``: the SAD/SSD cost against the right image sampled at ``x − d``
-(edge-replicated), a zero-padded ``window``² box sum, a first-minimum WTA with
-parabolic subpixel for ``best ∈ [1, D−2]``, the optional uniqueness test and
-the right-view WTA ``costR(x, d) = costL(x + d, d)``.
+(edge-replicated), or the census Hamming distance against the right
+descriptor there (column 0's descriptor where ``x − d < 0``), a zero-padded
+``window``² box sum, a first-minimum WTA with parabolic subpixel for
+``best ∈ [1, D−2]``, the optional uniqueness test and the right-view WTA
+``costR(x, d) = costL(x + d, d)``.
 
-Census planes and the in-kernel LR sweep belong to the census+LR slice; both
-paths raise ``NotImplementedError`` for them.
+Census descriptors are computed once per image in torch
+(``dense.census_planes``, int32 [P, H, W]) and handed to the kernel. With
+``cfg.lr_threshold`` set, the fourth output also carries the LR check: the
+Pallas kernel sweeps it in-kernel, but a CUDA block cannot see the right-view
+disparity of other blocks' columns, so :func:`raw_match` runs K4 right after
+K1 (the same ``dense.lr_consistency`` semantics) and multiplies it in.
+:func:`match_pair_fused` is the ``pallas`` backend.
 """
 
 from __future__ import annotations
@@ -20,13 +27,15 @@ import torch
 
 from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig
+from stepth_tpu_torch.match import dense, fused_post
 
 _BIG = 1e30
 
 K1 = kernels.Kernel(
     "K1 fused_dense",
     "stepth_fused_dense",
-    [kernels.PTR] * 6 + [kernels.INT] * 6 + [kernels.FLOAT, kernels.INT, kernels.INT],
+    [kernels.PTR] * 4 + [kernels.INT] + [kernels.PTR] * 4 + [kernels.INT] * 6
+    + [kernels.FLOAT, kernels.INT, kernels.INT],
     source="stepth_tpu_torch/csrc/fused_dense.cu",
     replaces="stepth_tpu/match/pallas_dense.py:85",
 )
@@ -52,17 +61,17 @@ def box_sum_ordered(x: torch.Tensor, win: int, dim: int) -> torch.Tensor:
 
 
 def _check_cfg(cfg: MatchConfig) -> None:
-    if cfg.cost == "census":
-        raise NotImplementedError(
-            "census cost: ROADMAP slice 2 (census planes in K1/K2)"
-        )
-    if cfg.cost not in ("sad", "ssd"):
+    if cfg.cost not in ("sad", "ssd", "census"):
         raise NotImplementedError(f"fused matcher: cost {cfg.cost!r} unsupported")
-    if cfg.lr_threshold is not None:
-        raise NotImplementedError(
-            "in-kernel LR sweep: ROADMAP slice 2 (K4 LR check); "
-            "pass lr_threshold=None"
-        )
+
+
+def _lr_valid(valid, disp, disp_r, cfg: MatchConfig, lr_fn):
+    """``valid`` times the LR check of ``disp`` against ``disp_r`` when
+    ``cfg.lr_threshold`` is set (the Pallas kernel's ``ok * uok``)."""
+    if cfg.lr_threshold is None:
+        return valid
+    ok = lr_fn(disp, disp_r, float(cfg.lr_threshold), cfg.num_disparities)
+    return valid * ok.to(torch.float32)
 
 
 def raw_match_plain(
@@ -74,7 +83,8 @@ def raw_match_plain(
     g_h: Optional[int] = None,
 ):
     """K1's plain version on gray f32[H, W] images, on any device. Returns
-    ``(disp, disp_r, cbest, valid)``, all f32[H, W] (``valid`` is 1.0/0.0).
+    ``(disp, disp_r, cbest, valid)``, all f32[H, W] (``valid`` is 1.0/0.0:
+    uniqueness, times the LR check when ``cfg.lr_threshold`` is set).
     ``g_row0``/``g_h``: global row window when the inputs are a halo-extended
     row shard (rows outside ``[0, g_h)`` contribute no cost). ``tile_rows``
     is kept for signature parity; the output does not depend on it."""
@@ -88,6 +98,8 @@ def raw_match_plain(
     gr = g_row0 + torch.arange(h, device=dev)
     row_ok = ((gr >= 0) & (gr < g_h))[:, None]
     x = torch.arange(w, device=dev)
+    if cfg.cost == "census":
+        lc, rc = dense.census_pair(lg, rg, cfg.census_window)
 
     def full(v):
         return torch.full((h, w), v, dtype=torch.float32, device=dev)
@@ -98,8 +110,12 @@ def raw_match_plain(
     runlag2, second = full(_BIG), full(_BIG)
     bestd, bestrd = izero, izero
     for d in range(D):
-        diff = lg - rg[:, (x - d).clamp(min=0)]
-        cost = diff * diff if cfg.cost == "ssd" else diff.abs()
+        xs = (x - d).clamp(min=0)
+        if cfg.cost == "census":
+            cost = dense.popcount32(lc ^ rc[:, :, xs]).sum(0).to(torch.float32)
+        else:
+            diff = lg - rg[:, xs]
+            cost = diff * diff if cfg.cost == "ssd" else diff.abs()
         cost = torch.where(row_ok, cost, 0.0)
         padded = torch.nn.functional.pad(cost, (r, r, r, r))
         agg = box_sum_ordered(box_sum_ordered(padded, win, 0), win, 1)
@@ -137,7 +153,9 @@ def raw_match_plain(
         valid = full(1.0)
     else:
         valid = (cb * (1.0 + cfg.uniqueness) <= second).to(torch.float32)
-    return disp, bestrd.to(torch.float32), cb, valid
+    disp_r = bestrd.to(torch.float32)
+    valid = _lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_plain)
+    return disp, disp_r, cb, valid
 
 
 def raw_match(
@@ -148,9 +166,10 @@ def raw_match(
     g_row0: int = 0,
     g_h: Optional[int] = None,
 ):
-    """Fused exhaustive match of gray f32[H, W] images: K1 on CUDA tensors,
-    :func:`raw_match_plain` on CPU tensors. Returns ``(disp, disp_r, cbest,
-    valid)``, full-size and pre-epilogue."""
+    """Fused exhaustive match of gray f32[H, W] images: K1 (then K4 when
+    ``cfg.lr_threshold`` is set) on CUDA tensors, :func:`raw_match_plain` on
+    CPU tensors. Returns ``(disp, disp_r, cbest, valid)``, full-size and
+    pre-epilogue."""
     if lg.device.type == "cpu":
         return raw_match_plain(lg, rg, cfg, tile_rows, g_row0, g_h)
     _check_cfg(cfg)
@@ -163,10 +182,42 @@ def raw_match(
     if D < 1 or cfg.window < 1:
         raise ValueError(f"need D ≥ 1 and window ≥ 1, got {D}, {cfg.window}")
     outs = [torch.empty_like(lg) for _ in range(4)]
+    images = (lg.data_ptr(), rg.data_ptr(), None, None, 0)
+    if cfg.cost == "census":
+        lc, rc = dense.census_pair(lg, rg, cfg.census_window)
+        images = (None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0])
     uniq = cfg.uniqueness
     K1.launch(
-        lg.device, lg.data_ptr(), rg.data_ptr(), *(o.data_ptr() for o in outs),
+        lg.device, *images, *(o.data_ptr() for o in outs),
         h, w, D, cfg.window, int(cfg.cost == "ssd"), int(uniq is not None),
         1.0 + (uniq or 0.0), int(g_row0), h if g_h is None else int(g_h),
     )
-    return tuple(outs)
+    disp, disp_r, cbest, valid = outs
+    valid = _lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_fused)
+    return disp, disp_r, cbest, valid
+
+
+def _match_pair(left, right, cfg, tile_rows, device, match_fn, fill_fn, median_fn):
+    lg = dense.grayscale(left, device)
+    rg = dense.grayscale(right, device)
+    disp, _, cbest, valid_f = match_fn(lg, rg, cfg, tile_rows)
+    valid = valid_f > 0.5
+    disp = median_fn(fill_fn(disp, valid))
+    return dense.MatchResult(disparity=disp, valid=valid, cost=cbest)
+
+
+def match_pair_fused(left, right, cfg: MatchConfig = MatchConfig(), tile_rows: int = 32,
+                     device=None) -> dense.MatchResult:
+    """The exhaustive matcher with its epilogue (twin of
+    ``match_pair_pallas``, the ``pallas`` backend): K1 (+ K4 with
+    ``cfg.lr_threshold``), then the occlusion fill K5 and the median K3.
+    ``left``/``right``: gray or RGB tensors, or arrays with a ``device``."""
+    return _match_pair(left, right, cfg, tile_rows, device, raw_match,
+                       fused_post.fill_invalid_fused, fused_post.median3_fused)
+
+
+def match_pair_plain(left, right, cfg: MatchConfig = MatchConfig(), tile_rows: int = 32,
+                     device=None) -> dense.MatchResult:
+    """The same through the kernels' plain versions, on any device."""
+    return _match_pair(left, right, cfg, tile_rows, device, raw_match_plain,
+                       fused_post.fill_invalid_plain, fused_post.median3_plain)

@@ -1,10 +1,14 @@
-"""3×3 median post-filter: kernel K3 and its plain version (twin of
-``stepth_tpu/match/pallas_post.py:26-81, 270-299``).
+"""Post-processing kernels K3 (3×3 median), K4 (LR consistency check) and
+K5 (scanline occlusion fill), each with its plain version (twin of
+``stepth_tpu/match/pallas_post.py``).
 
-:func:`median3_fused` launches the CUDA kernel for a CUDA tensor and runs
-:func:`median3_plain` for a CPU tensor. Both apply the reference's
-19-comparator median-of-9 network with edge replicate, so they equal
-``dense.median3`` bit for bit.
+Each ``*_fused`` wrapper launches its CUDA kernel for CUDA tensors and runs
+the ``*_plain`` version for CPU tensors. All three are selections or
+comparisons, not arithmetic that could be reordered, so kernel, plain
+version and the reference agree bit for bit: the median applies the
+reference's 19-comparator network with edge replicate (equal to
+``dense.median3``); the LR check and the fill are ``dense.lr_consistency``
+and ``dense.fill_invalid``.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from stepth_tpu_torch import kernels
+from stepth_tpu_torch.match import dense
 
 K3 = kernels.Kernel(
     "K3 median3",
@@ -19,6 +24,20 @@ K3 = kernels.Kernel(
     [kernels.PTR, kernels.PTR, kernels.INT, kernels.INT],
     source="stepth_tpu_torch/csrc/fused_post.cu",
     replaces="stepth_tpu/match/pallas_post.py:47",
+)
+K4 = kernels.Kernel(
+    "K4 lr_check",
+    "stepth_lr_check",
+    [kernels.PTR] * 3 + [kernels.INT] * 3 + [kernels.FLOAT],
+    source="stepth_tpu_torch/csrc/fused_post.cu",
+    replaces="stepth_tpu/match/pallas_post.py:84",
+)
+K5 = kernels.Kernel(
+    "K5 fill_invalid",
+    "stepth_fill_invalid",
+    [kernels.PTR] * 3 + [kernels.INT] * 2,
+    source="stepth_tpu_torch/csrc/fused_post.cu",
+    replaces="stepth_tpu/match/pallas_post.py:137",
 )
 
 # the 19-comparator median-of-9 sorting network (Smith); pairs (lo, hi)
@@ -55,4 +74,50 @@ def median3_fused(x: torch.Tensor) -> torch.Tensor:
     h, w = x.shape
     out = torch.empty_like(x)
     K3.launch(x.device, x.data_ptr(), out.data_ptr(), h, w)
+    return out
+
+
+def lr_consistency_plain(disp_l: torch.Tensor, disp_r: torch.Tensor,
+                         threshold: float = 1.0, num_disparities: int = 128) -> torch.Tensor:
+    """K4's plain version: ``dense.lr_consistency`` (bool[H, W])."""
+    return dense.lr_consistency(disp_l, disp_r, threshold, num_disparities)
+
+
+def lr_consistency_fused(disp_l: torch.Tensor, disp_r: torch.Tensor,
+                         threshold: float = 1.0, num_disparities: int = 128) -> torch.Tensor:
+    """LR validity bool[H, W] of f32 disparity maps (twin of
+    ``lr_consistency_pallas``): K4 on CUDA tensors, the plain version on CPU
+    tensors. A right-view value of −1e6 (no candidate) is never valid."""
+    if disp_l.device.type == "cpu":
+        return lr_consistency_plain(disp_l, disp_r, threshold, num_disparities)
+    kernels.check_cuda_tensor("lr_check left", disp_l, torch.float32, 2)
+    kernels.check_cuda_tensor("lr_check right", disp_r, torch.float32, 2)
+    if disp_r.shape != disp_l.shape or disp_r.device != disp_l.device:
+        raise ValueError(f"lr_check: {tuple(disp_l.shape)} vs {tuple(disp_r.shape)}")
+    h, w = disp_l.shape
+    out = torch.empty((h, w), dtype=torch.bool, device=disp_l.device)
+    K4.launch(disp_l.device, disp_l.data_ptr(), disp_r.data_ptr(), out.data_ptr(),
+              h, w, int(num_disparities), float(threshold))
+    return out
+
+
+def fill_invalid_plain(disp: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """K5's plain version: ``dense.fill_invalid`` (nearest valid index to the
+    left by ``cummax``, to the right by a reversed ``cummin``)."""
+    return dense.fill_invalid(disp, valid)
+
+
+def fill_invalid_fused(disp: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Scanline occlusion fill of f32[H, W] under bool[H, W] validity (twin
+    of ``fill_invalid_pallas``): K5 on CUDA tensors, the plain version on
+    CPU tensors."""
+    if disp.device.type == "cpu":
+        return fill_invalid_plain(disp, valid)
+    kernels.check_cuda_tensor("fill disp", disp, torch.float32, 2)
+    kernels.check_cuda_tensor("fill valid", valid, torch.bool, 2)
+    if valid.shape != disp.shape or valid.device != disp.device:
+        raise ValueError(f"fill: {tuple(disp.shape)} vs {tuple(valid.shape)}")
+    h, w = disp.shape
+    out = torch.empty_like(disp)
+    K5.launch(disp.device, disp.data_ptr(), valid.data_ptr(), out.data_ptr(), h, w)
     return out

@@ -1,6 +1,6 @@
 """Hierarchical matching: the refine plan, kernel K2 with its plain version,
-and the coarse-to-fine pipeline (twin of
-``stepth_tpu/match/pallas_refine.py:377-702``).
+the coarse-to-fine pipeline and its temporally seeded video loop (twin of
+``stepth_tpu/match/pallas_refine.py:377-789``).
 
 A refine level searches ``base ± R`` around the upsampled coarser disparity,
 where ``base`` is fixed per (tile_rows × 128-column) tile: the plan
@@ -11,11 +11,20 @@ built here in torch, on the input's device, as the reference builds it.
 :func:`refine_level` plans a level and hands the plan to
 :func:`refine_planned`, which launches K2 for CUDA tensors and runs
 :func:`refine_planned_plain` for CPU tensors.
+
+``lr=True`` also returns the right-view disparity ``dR`` (−1e6 where no
+candidate covered the column). Its contract is the reference kernel's: each
+tile contributes candidates from its whole 256-column cost region, real
+columns ``[jc·128 − M, jc·128 − M + 256)`` with ``M = round_up(2·(win//2),
+8)``, whose horizontal box sums wrap modulo 256 at both ends; a candidate at
+region column ``q'`` with offset ``o`` reaches right column ``x(q') − s``
+only for ``q' ∈ [R + o, 255 − R + o]``; the first minimum wins in the order
+(tile, window, offset).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -25,11 +34,20 @@ from stepth_tpu_torch.match import dense, fused_dense, fused_post, pyramid
 
 _BIG = 1e30
 _TW = 128  # plan tile width (part of the output contract)
+_CW = 256  # the reference's cost-region width (the right view's contract)
+_UNTOUCHED = torch.iinfo(torch.int64).max  # start of the plain scatter-min
 
 K2 = kernels.Kernel(
     "K2 fused_refine",
     "stepth_fused_refine",
-    [kernels.PTR] * 5 + [kernels.INT] * 10,
+    [kernels.PTR] * 4 + [kernels.INT] + [kernels.PTR] * 4 + [kernels.INT] * 12,
+    source="stepth_tpu_torch/csrc/fused_refine.cu",
+    replaces="stepth_tpu/match/pallas_refine.py:63",
+)
+K2_EMIT = kernels.Kernel(
+    "K2 right-view emit",
+    "stepth_refine_emit_r",
+    [kernels.PTR] * 3 + [kernels.INT] * 6,
     source="stepth_tpu_torch/csrc/fused_refine.cu",
     replaces="stepth_tpu/match/pallas_refine.py:63",
 )
@@ -108,64 +126,132 @@ def plan_level(
     return bases, nw, tile_rows
 
 
-def _check_level(cfg: MatchConfig, lr: bool) -> None:
-    if lr:
-        raise NotImplementedError("refine lr=True: ROADMAP slice 2 (K2 right view)")
-    if cfg.cost == "census":
-        raise NotImplementedError(
-            "census cost: ROADMAP slice 2 (census planes in K1/K2)"
-        )
-    if cfg.cost not in ("sad", "ssd"):
+def _region_margin(cfg: MatchConfig, radius: int) -> int:
+    """The reference's cost-region margin ``M``, after its checks."""
+    if cfg.cost not in ("sad", "ssd", "census"):
         raise NotImplementedError(f"refine: cost {cfg.cost!r} unsupported")
+    if radius >= 64:
+        raise ValueError(f"refine radius {radius} ≥ 64 (right-block headroom)")
+    rbox = cfg.window // 2
+    M = _round_up(2 * rbox, 8)
+    if M + _TW + 2 * rbox > _CW:
+        raise ValueError(f"window {cfg.window} too wide for the {_CW} cost region")
+    return M
+
+
+def _images(lg, rg, cfg: MatchConfig):
+    """The matched images as planes [P, H, W]: census descriptors (int32),
+    or the gray image itself (P = 1)."""
+    if cfg.cost == "census":
+        return dense.census_pair(lg, rg, cfg.census_window)
+    return lg[None], rg[None]
+
+
+def emit_right_plain(packed, bases, tile_rows: int, radius: int) -> torch.Tensor:
+    """The right-view emit's plain version: decode the packed per-column
+    minima int64 [H, W] (``f32 cost bits << 32 | key``, −1 where no
+    candidate arrived) into dR f32[H, W]: key ``(jc·K + wi)·(2R+1) + o + R``
+    → candidate ``bases[y // tile_rows, jc, wi] + o``; −1e6 where untouched."""
+    h, w = packed.shape
+    nc, K = bases.shape[1:]
+    n = 2 * radius + 1
+    key = packed & 0xFFFFFFFF
+    o = key % n - radius
+    jc, wi = (key // n // K).clamp(max=nc - 1), key // n % K
+    i = (torch.arange(h, device=packed.device) // tile_rows)[:, None].expand(h, w)
+    s = bases[i, jc, wi] + o
+    return torch.where(packed == -1, -1e6, s.to(torch.float32))
+
+
+def emit_right(packed, bases, tile_rows: int, radius: int) -> torch.Tensor:
+    """Right-view decode: the emit kernel of K2 on CUDA tensors,
+    :func:`emit_right_plain` on CPU tensors."""
+    if packed.device.type == "cpu":
+        return emit_right_plain(packed, bases, tile_rows, radius)
+    kernels.check_cuda_tensor("emit packed", packed, torch.int64, 2)
+    kernels.check_cuda_tensor("emit bases", bases, torch.int32, 3)
+    h, w = packed.shape
+    nr, nc, K = bases.shape
+    if nr * tile_rows < h:
+        raise ValueError(f"emit: plan {nr}x{nc} tiles does not cover {h} rows")
+    disp_r = torch.empty((h, w), dtype=torch.float32, device=packed.device)
+    K2_EMIT.launch(packed.device, packed.data_ptr(), bases.data_ptr(), disp_r.data_ptr(),
+                   h, w, nc, K, tile_rows, radius)
+    return disp_r
 
 
 def refine_planned_plain(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
-                         tile_rows: int, g_row0: int = 0, g_h: Optional[int] = None):
+                         tile_rows: int, g_row0: int = 0, g_h: Optional[int] = None,
+                         lr: bool = False):
     """K2's plain version for a given plan (from :func:`plan_level`): every
     tile's cost over its box halo is gathered at the tile's own candidate, so
     neighbours across a tile border are costed at the centre tile's
-    disparity, as in the kernel."""
+    disparity, as in the kernel. With ``lr`` each tile costs its whole
+    256-column region, circularly box-summed, and its candidates are
+    scatter-minned into the right view by ``(cost, tile, window, offset)``;
+    returns ``(disp, disp_r)``."""
     h, w = lg.shape
     g_h = h if g_h is None else g_h
     nr, nc, K = bases.shape
     win, R, TH = cfg.window, radius, tile_rows
     r = win // 2
+    M = _region_margin(cfg, R)
+    off, Q = (M, _CW) if lr else (r, _TW + 2 * r)
     dev = lg.device
     ys = torch.arange(nr, device=dev)[:, None] * TH - r + torch.arange(TH + 2 * r, device=dev)
-    xs = torch.arange(nc, device=dev)[:, None] * _TW - r + torch.arange(_TW + 2 * r, device=dev)
-    SR, Q = ys.shape[1], xs.shape[1]
+    xs = torch.arange(nc, device=dev)[:, None] * _TW - off + torch.arange(Q, device=dev)
+    SR = ys.shape[1]
     row_ok = (ys >= 0) & (ys < h) & (g_row0 + ys >= 0) & (g_row0 + ys < g_h)
     col_ok = (xs >= 0) & (xs < w)
     in_img = row_ok[:, :, None, None] & col_ok[None, None]  # [nr, SR, nc, Q]
     yc = ys.clamp(0, h - 1)
-    left = lg[yc][:, :, xs.clamp(0, w - 1)]  # [nr, SR, nc, Q]
-    right_rows = rg[yc]  # [nr, SR, w]
+    lsrc, rsrc = _images(lg, rg, cfg)
+    P = lsrc.shape[0]
+    left = lsrc[:, yc][..., xs.clamp(0, w - 1)]  # [P, nr, SR, nc, Q]
+    right_rows = rsrc[:, yc]  # [P, nr, SR, w]
 
     shape = (nr, TH, nc, _TW)
 
-    def full(v, dtype=torch.float32):
+    def full(v, dtype=torch.float32, shape=shape):
         return torch.full(shape, v, dtype=dtype, device=dev)
 
     best, cb, cp1, cm1 = full(_BIG), full(_BIG), full(_BIG), full(0.0)
     bests = full(0, torch.int32)
     oi = full(-2, torch.int32)
     wbest = full(-1, torch.int32)
+    if lr:
+        packed = torch.full((h * w,), _UNTOUCHED, dtype=torch.int64, device=dev)
+        y_out = (torch.arange(nr, device=dev)[:, None] * TH
+                 + torch.arange(TH, device=dev))[:, :, None, None]  # [nr, TH, 1, 1]
     for wi in range(K):
         active = ((nw > wi) | (wi == 0))[:, None, :, None]  # window 0 always runs
         prev = full(0.0)
+        if lr:
+            rshape = (nr, TH, nc, _CW - 2 * R)  # targets q ∈ [2R, 256)
+            rbest, roff = full(_BIG, shape=rshape), full(-1, torch.int64, rshape)
+            # right column reached from target q: u = x(q') − s = x(q) − R − base
+            u = (xs[None, :, 2 * R:] - R - bases[:, :, wi, None])[:, None]  # [nr, 1, nc, nq]
         for o in range(-R, R + 1):
             s = bases[:, :, wi] + o  # [nr, nc]; may be < 0 at base 0
             xsrc = xs[None] - s[:, :, None]  # [nr, nc, Q]
             bad = ((xsrc < 0) | (xsrc >= w))[:, None]
-            idx = xsrc.clamp(0, w - 1).reshape(nr, 1, nc * Q).expand(nr, SR, nc * Q)
-            rs = torch.gather(right_rows, 2, idx).reshape(nr, SR, nc, Q)
-            diff = left - rs
-            cost = diff * diff if cfg.cost == "ssd" else diff.abs()
+            idx = xsrc.clamp(0, w - 1).reshape(1, nr, 1, nc * Q).expand(P, nr, SR, nc * Q)
+            rs = torch.gather(right_rows, 3, idx).reshape(P, nr, SR, nc, Q)
+            if cfg.cost == "census":
+                cost = dense.popcount32(left ^ rs).sum(0).to(torch.float32)
+            else:
+                diff = left[0] - rs[0]
+                cost = diff * diff if cfg.cost == "ssd" else diff.abs()
             cost = torch.where(bad, 1e6, cost)
             cost = torch.where(in_img, cost, 0.0)
-            agg = fused_dense.box_sum_ordered(
-                fused_dense.box_sum_ordered(cost, win, 1), win, 3
-            )  # [nr, TH, nc, TW]
+            vert = fused_dense.box_sum_ordered(cost, win, 1)  # [nr, TH, nc, Q]
+            if lr:  # the reference's roll: the region's box sums wrap mod 256
+                if r:
+                    vert = torch.cat([vert[..., -r:], vert, vert[..., :r]], dim=3)
+                region = fused_dense.box_sum_ordered(vert, win, 3)  # [nr, TH, nc, 256]
+                agg = region[..., M : M + _TW]
+            else:
+                agg = fused_dense.box_sum_ordered(vert, win, 3)  # [nr, TH, nc, TW]
             oc = o + R
             upd = active & (agg < best)
             is_next = active & ~upd & (wbest == wi) & (oi == oc - 1)
@@ -177,6 +263,20 @@ def refine_planned_plain(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
             oi = torch.where(upd, oc, oi)
             wbest = torch.where(upd, wi, wbest)
             prev = agg
+            if lr:
+                # target q takes region column q' = q − R + o
+                cand = region[..., R + o : _CW - R + o]
+                xc = xs[None, None, :, R + o : _CW - R + o]
+                ok = (xc >= 0) & (xc < w) & (u >= 0) & (u < w)
+                take = ok & (cand < rbest)
+                rbest = torch.where(take, cand, rbest)
+                roff = torch.where(take, oc, roff)
+        if lr:
+            key = (torch.arange(nc, device=dev)[:, None] * K + wi) * (2 * R + 1) + roff
+            hit = active & (roff >= 0) & (y_out < h)
+            val = (rbest.view(torch.int32).to(torch.int64) << 32) | key
+            dst = (y_out * w + u).expand(rshape)
+            packed.scatter_reduce_(0, dst[hit], val[hit], reduce="amin")
 
     denom = cm1 - 2.0 * cb + cp1
     delta = torch.where(denom.abs() > 1e-6, (cm1 - cp1) / (2.0 * denom), 0.0)
@@ -184,38 +284,23 @@ def refine_planned_plain(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
     interior = (oi >= 1) & (oi <= 2 * R - 1)
     dval = bests.to(torch.float32)
     dval = torch.where(interior, dval + delta, dval).clamp(0.0, float(w - 1))
-    return dval.reshape(nr * TH, nc * _TW)[:h, :w]
-
-
-def refine_level_plain(
-    left_g: torch.Tensor,
-    right_g: torch.Tensor,
-    prior: torch.Tensor,
-    cfg: MatchConfig,
-    radius: int,
-    max_base: int,
-    tile_rows: int = 32,
-    g_row0: int = 0,
-    g_h: Optional[int] = None,
-    lr: bool = False,
-    max_windows: int = 4,
-) -> torch.Tensor:
-    """K2's plain version, on any device: one refine level of gray f32[H, W]
-    images around ``prior`` f32[H, W]; returns the disparity f32[H, W].
-    ``g_row0``/``g_h``: global row window of a halo-extended row shard."""
-    _check_level(cfg, lr)
-    bases, nw, tile_rows = plan_level(prior, tile_rows, max_base, radius, max_windows)
-    return refine_planned_plain(
-        left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h
-    )
+    disp = dval.reshape(nr * TH, nc * _TW)[:h, :w]
+    if lr:  # the kernel's untouched marker: all ones
+        packed = torch.where(packed == _UNTOUCHED, -1, packed).reshape(h, w)
+        return disp, emit_right_plain(packed, bases, TH, R)
+    return disp
 
 
 def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
-                   tile_rows: int, g_row0: int = 0, g_h: Optional[int] = None):
-    """One refine level for a given plan: K2 on CUDA tensors,
-    :func:`refine_planned_plain` on CPU tensors."""
+                   tile_rows: int, g_row0: int = 0, g_h: Optional[int] = None,
+                   lr: bool = False):
+    """One refine level for a given plan: K2 (then its right-view emit with
+    ``lr``) on CUDA tensors, :func:`refine_planned_plain` on CPU tensors.
+    Returns ``disp``, or ``(disp, disp_r)`` with ``lr``."""
     if lg.device.type == "cpu":
-        return refine_planned_plain(lg, rg, bases, nw, cfg, radius, tile_rows, g_row0, g_h)
+        return refine_planned_plain(lg, rg, bases, nw, cfg, radius, tile_rows,
+                                    g_row0, g_h, lr)
+    M = _region_margin(cfg, radius)
     kernels.check_cuda_tensor("refine left", lg, torch.float32, 2)
     kernels.check_cuda_tensor("refine right", rg, torch.float32, 2)
     kernels.check_cuda_tensor("refine bases", bases, torch.int32, 3)
@@ -226,13 +311,30 @@ def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
         raise ValueError("refine: right/plan shapes disagree or tile_rows % 8 != 0")
     if nr * tile_rows < h or nc * _TW < w:
         raise ValueError(f"refine: plan {nr}x{nc} tiles does not cover {h}x{w}")
+    images = (lg.data_ptr(), rg.data_ptr(), None, None, 0)
+    if cfg.cost == "census":
+        lc, rc = _images(lg, rg, cfg)
+        images = (None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0])
     out = torch.empty_like(lg)
+    # all ones: the u64 start value atomicMin never keeps
+    packed = torch.full((h, w), -1, dtype=torch.int64, device=lg.device) if lr else None
     K2.launch(
-        lg.device, lg.data_ptr(), rg.data_ptr(), bases.data_ptr(), nw.data_ptr(),
-        out.data_ptr(), h, w, nc, K, tile_rows, radius, cfg.window,
-        int(cfg.cost == "ssd"), int(g_row0), h if g_h is None else int(g_h),
+        lg.device, *images, bases.data_ptr(), nw.data_ptr(), out.data_ptr(),
+        packed.data_ptr() if lr else None, h, w, nc, K, tile_rows, radius,
+        cfg.window, M, int(cfg.cost == "ssd"), int(g_row0),
+        h if g_h is None else int(g_h), int(lr),
     )
-    return out
+    if not lr:
+        return out
+    return out, emit_right(packed, bases, tile_rows, radius)
+
+
+def _refine_level(planned_fn, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
+                  g_row0, g_h, lr, max_windows):
+    if prior.shape != left_g.shape:
+        raise ValueError(f"prior {tuple(prior.shape)} != image {tuple(left_g.shape)}")
+    bases, nw, tile_rows = plan_level(prior, tile_rows, max_base, radius, max_windows)
+    return planned_fn(left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h, lr)
 
 
 def refine_level(
@@ -247,28 +349,72 @@ def refine_level(
     g_h: Optional[int] = None,
     lr: bool = False,
     max_windows: int = 4,
-) -> torch.Tensor:
+):
     """One refine level: the plan, then K2 on CUDA tensors or its plain
-    version on CPU tensors (:func:`refine_planned`). Same arguments as the
-    reference's ``refine_level`` without ``interpret``; ``lr=True`` (the
-    right-view output) is not ported yet."""
-    _check_level(cfg, lr)
-    if prior.shape != left_g.shape:
-        raise ValueError(f"prior {tuple(prior.shape)} != image {tuple(left_g.shape)}")
-    bases, nw, tile_rows = plan_level(prior, tile_rows, max_base, radius, max_windows)
-    return refine_planned(left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h)
+    version on CPU tensors (:func:`refine_planned`). Same arguments and
+    outputs as the reference's ``refine_level`` without ``interpret``:
+    f32[H, W], or ``(disp, disp_r)`` with ``lr``."""
+    return _refine_level(refine_planned, left_g, right_g, prior, cfg, radius, max_base,
+                         tile_rows, g_row0, g_h, lr, max_windows)
 
 
-def _match_hierarchical(left, right, cfg, pyr, tile_rows, lr_check, coarse_backend,
-                        device, match_fn, refine_fn, median_fn) -> dense.MatchResult:
+def refine_level_plain(
+    left_g: torch.Tensor,
+    right_g: torch.Tensor,
+    prior: torch.Tensor,
+    cfg: MatchConfig,
+    radius: int,
+    max_base: int,
+    tile_rows: int = 32,
+    g_row0: int = 0,
+    g_h: Optional[int] = None,
+    lr: bool = False,
+    max_windows: int = 4,
+):
+    """K2's plain version of :func:`refine_level`, on any device."""
+    return _refine_level(refine_planned_plain, left_g, right_g, prior, cfg, radius,
+                         max_base, tile_rows, g_row0, g_h, lr, max_windows)
+
+
+class _Path(NamedTuple):
+    """The functions one pipeline runs: the kernels' wrappers, or their plain
+    versions."""
+
+    match: Callable
+    refine: Callable
+    lr: Callable
+    fill: Callable
+    median: Callable
+
+
+FUSED = _Path(fused_dense.raw_match, refine_level, fused_post.lr_consistency_fused,
+              fused_post.fill_invalid_fused, fused_post.median3_fused)
+PLAIN = _Path(fused_dense.raw_match_plain, refine_level_plain,
+              fused_post.lr_consistency_plain, fused_post.fill_invalid_plain,
+              fused_post.median3_plain)
+
+
+def _post(path: _Path, disp, disp_r, cfg: MatchConfig, max_base: int, lr_check: bool):
+    """The epilogue: LR check against ``disp_r`` (threshold
+    ``cfg.lr_threshold``, 1.0 when unset; ``D = max_base``), occlusion fill
+    and median with ``lr_check``; the median alone without."""
     if lr_check:
-        raise NotImplementedError(
-            "lr_check: ROADMAP slice 2 (K2 lr=True, K4 LR check, K5 fill)"
-        )
+        thr = 1.0 if cfg.lr_threshold is None else float(cfg.lr_threshold)
+        valid = path.lr(disp, disp_r, thr, max_base)
+        disp = path.median(path.fill(disp, valid))
+        return dense.MatchResult(disparity=disp, valid=valid, cost=torch.zeros_like(disp))
+    disp = path.median(disp)
+    return dense.MatchResult(disparity=disp, valid=disp >= 0, cost=torch.zeros_like(disp))
+
+
+def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
+                        coarse_backend, device) -> dense.MatchResult:
     if coarse_backend == "sgm":
         raise NotImplementedError("coarse_backend='sgm': ROADMAP Queue 1 item 7 (K6-K9)")
     if coarse_backend != "wta":
         raise ValueError(f"coarse_backend must be 'wta' or 'sgm', got {coarse_backend!r}")
+    if lr_check and pyr.levels == 1:
+        raise ValueError("lr_check needs at least one refine level")
     lefts = [dense.grayscale(left, device)]
     rights = [dense.grayscale(right, device)]
     for _ in range(pyr.levels - 1):
@@ -283,20 +429,22 @@ def _match_hierarchical(left, right, cfg, pyr, tile_rows, lr_check, coarse_backe
         subpixel=cfg.subpixel,
         lr_threshold=None,
     )
-    disp = match_fn(lefts[-1], rights[-1], coarse_cfg, tile_rows=min(tile_rows, 16))[0]
+    disp = path.match(lefts[-1], rights[-1], coarse_cfg, tile_rows=min(tile_rows, 16))[0]
     max_base = pyr.coarsest_disparities
+    disp_r = None
     for lvl in range(pyr.levels - 2, -1, -1):
         h, w = lefts[lvl].shape
         prior = pyramid.upsample2_disparity(disp, h, w)
         max_base = max_base * 2
-        disp = refine_fn(
+        want_lr = lr_check and lvl == 0  # dR only at full resolution
+        out = path.refine(
             lefts[lvl], rights[lvl], prior, cfg,
             pyr.final_radius if lvl == 0 else pyr.refine_radius,
-            max_base, tile_rows,
+            max_base, tile_rows, lr=want_lr,
             max_windows=pyr.final_windows if lvl == 0 else pyr.refine_windows,
         )
-    disp = median_fn(disp)
-    return dense.MatchResult(disparity=disp, valid=disp >= 0, cost=torch.zeros_like(disp))
+        disp, disp_r = out if want_lr else (out, None)
+    return _post(path, disp, disp_r, cfg, max_base, lr_check)
 
 
 def match_hierarchical_fused(
@@ -313,12 +461,12 @@ def match_hierarchical_fused(
     ``match_hierarchical_pallas`` with ``coarse_backend="wta"``): grayscale,
     ``levels − 1`` downsamples, K1 at the coarsest level, K2 at every finer
     level (``max_base`` doubling from ``coarsest_disparities``; level 0 uses
-    ``final_radius``/``final_windows``), then K3. ``left``/``right``: gray
-    [H, W] or RGB [H, W, 3] tensors, or arrays with an explicit ``device``."""
-    return _match_hierarchical(
-        left, right, cfg, pyr, tile_rows, lr_check, coarse_backend, device,
-        fused_dense.raw_match, refine_level, fused_post.median3_fused,
-    )
+    ``final_radius``/``final_windows``, and with ``lr_check`` also returns
+    the right view), then with ``lr_check`` K4 (``D = coarsest << (levels −
+    1)``) and K5, and K3. ``left``/``right``: gray [H, W] or RGB [H, W, 3]
+    tensors, or arrays with an explicit ``device``."""
+    return _match_hierarchical(FUSED, left, right, cfg, pyr, tile_rows, lr_check,
+                               coarse_backend, device)
 
 
 def match_hierarchical_plain(
@@ -333,7 +481,79 @@ def match_hierarchical_plain(
 ) -> dense.MatchResult:
     """The same pipeline through the kernels' plain versions, on any device:
     the reference the kernel path is held to on the card."""
-    return _match_hierarchical(
-        left, right, cfg, pyr, tile_rows, lr_check, coarse_backend, device,
-        fused_dense.raw_match_plain, refine_level_plain, fused_post.median3_plain,
+    return _match_hierarchical(PLAIN, left, right, cfg, pyr, tile_rows, lr_check,
+                               coarse_backend, device)
+
+
+def seeded_frame(path: _Path, left, right, prior, cfg: MatchConfig, pyr: PyramidConfig,
+                 tile_rows: int = 64, lr_check: bool = False, device=None) -> dense.MatchResult:
+    """One seeded (non-key) video frame on ``path`` (:data:`FUSED` or
+    :data:`PLAIN`): level-0 refine around ``prior``, the previous frame's
+    disparity, with ``max_base = coarsest << (levels − 1)``, then the
+    epilogue."""
+    max_base = pyr.coarsest_disparities << (pyr.levels - 1)
+    out = path.refine(
+        dense.grayscale(left, device), dense.grayscale(right, device), prior, cfg,
+        pyr.final_radius, max_base, tile_rows, lr=lr_check, max_windows=pyr.final_windows,
     )
+    disp, disp_r = out if lr_check else (out, None)
+    return _post(path, disp, disp_r, cfg, max_base, lr_check)
+
+
+def _match_temporal(path: _Path, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
+                    lr_check, coarse_backend, device) -> dense.MatchResult:
+    if lefts.ndim not in (3, 4):
+        raise ValueError(f"expected [T,H,W] or [T,H,W,C], got {tuple(lefts.shape)}")
+    if keyframe_interval < 1:
+        raise ValueError(f"keyframe_interval must be >= 1, got {keyframe_interval}")
+    frames = []
+    prev = None
+    for i in range(lefts.shape[0]):
+        if i % keyframe_interval == 0:
+            res = _match_hierarchical(path, lefts[i], rights[i], cfg, pyr, tile_rows,
+                                      lr_check, coarse_backend, device)
+        else:
+            res = seeded_frame(path, lefts[i], rights[i], prev, cfg, pyr, tile_rows,
+                               lr_check, device)
+        prev = res.disparity
+        frames.append(res)
+    return dense.MatchResult(*(torch.stack(field) for field in zip(*frames)))
+
+
+def match_temporal_fused(
+    lefts,
+    rights,
+    cfg: MatchConfig = MatchConfig(),
+    pyr: PyramidConfig = PyramidConfig(),
+    keyframe_interval: int = 8,
+    tile_rows: int = 64,
+    lr_check: bool = False,
+    coarse_backend: str = "wta",
+    device=None,
+) -> dense.MatchResult:
+    """Video stereo with temporal seeding (twin of ``match_temporal_pallas``)
+    over stacked frames ``[T, H, W]`` (or ``[T, H, W, 3]``): frame 0 and
+    every ``keyframe_interval``-th frame run :func:`match_hierarchical_fused`;
+    every other frame runs only level-0 K2 (with its right view under
+    ``lr_check``) seeded by the previous frame's output disparity, with
+    ``max_base = coarsest << (levels − 1)``, then the same epilogue. The
+    reference's ``lax.scan``/``lax.cond`` are a Python loop here. Returns a
+    stacked :class:`MatchResult`."""
+    return _match_temporal(FUSED, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
+                           lr_check, coarse_backend, device)
+
+
+def match_temporal_plain(
+    lefts,
+    rights,
+    cfg: MatchConfig = MatchConfig(),
+    pyr: PyramidConfig = PyramidConfig(),
+    keyframe_interval: int = 8,
+    tile_rows: int = 64,
+    lr_check: bool = False,
+    coarse_backend: str = "wta",
+    device=None,
+) -> dense.MatchResult:
+    """The same video loop through the kernels' plain versions."""
+    return _match_temporal(PLAIN, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
+                           lr_check, coarse_backend, device)

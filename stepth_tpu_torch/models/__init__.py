@@ -1,5 +1,5 @@
 """Model-level API."""
 
-from stepth_tpu_torch.models.stereo import StereoModel
+from stepth_tpu_torch.models.stereo import StereoModel, flagship
 
-__all__ = ["StereoModel"]
+__all__ = ["StereoModel", "flagship"]

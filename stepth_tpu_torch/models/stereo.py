@@ -1,10 +1,13 @@
 """Model-level API: a configured stereo depth estimator (twin of
-``stepth_tpu/models/stereo.py:38-110``).
+``stepth_tpu/models/stereo.py:38-198``).
 
-The fields are the reference's, so one configuration drives both packages.
-Backend ``"hierarchical-pallas"`` keeps its name: it runs the coarse-to-fine
-pyramid through the port's kernels K1–K3. Every other backend names the
-ROADMAP item that ports it.
+The fields are the reference's, so one configuration drives both packages,
+and the backends keep their names: ``"dense"`` is the plain-torch cost
+volume matcher, ``"pallas"`` the exhaustive matcher on the port's kernels
+(K1, K4, K5, K3), ``"hierarchical-pallas"`` the coarse-to-fine pyramid on
+them (K1, K2, K3, and K4, K5 with ``lr_check``). :meth:`StereoModel.batched`
+and :meth:`StereoModel.video` are Python loops over frames. Every other
+backend names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -23,8 +26,6 @@ from stepth_tpu_torch.config import (
 from stepth_tpu_torch.match import dense
 
 _NOT_PORTED = {
-    "dense": "ROADMAP Queue 1 item 2 (match/dense.py twin: match_pair)",
-    "pallas": "ROADMAP Queue 1 item 4 (match_pair_pallas, needs K5)",
     "hierarchical": "ROADMAP Queue 1 item 8 (XLA-only backends)",
     "hierarchical-sgm": "ROADMAP Queue 1 item 7 (SGM, K6-K9)",
     "sgm": "ROADMAP Queue 1 item 7 (SGM)",
@@ -42,12 +43,21 @@ class StereoModel:
     pyramid: PyramidConfig = PyramidConfig()
     sgm: SGMConfig = SGMConfig()  # sgm / sgm-pallas / hierarchical-sgm only
     precision: Tuple[int, int, int] = DEFAULT_PRECISION  # parity backend only
-    # hierarchical backends: flag LR-inconsistent pixels invalid (not ported)
+    # hierarchical-pallas only: run the final refine level's right view and
+    # mark LR-inconsistent pixels invalid (then fill them from their
+    # scanline neighbours). The other backends take their LR switch from
+    # match.lr_threshold.
     lr_check: bool = False
 
     def __call__(self, left, right, device=None) -> dense.MatchResult:
         """Match a rectified pair: gray [H, W] or RGB [H, W, 3] tensors (the
         device is theirs), or arrays with an explicit ``device``."""
+        if self.backend == "dense":
+            return dense.match_pair(left, right, self.match, device)
+        if self.backend == "pallas":
+            from stepth_tpu_torch.match import fused_dense
+
+            return fused_dense.match_pair_fused(left, right, self.match, device=device)
         if self.backend == "hierarchical-pallas":
             from stepth_tpu_torch.match import fused_refine
 
@@ -65,3 +75,53 @@ class StereoModel:
         """Disparity scaled to the reference's u8 depth convention."""
         res = self(left, right, device)
         return dense.disparity_to_depth_u8(res.disparity, self.match.num_disparities)
+
+    def batched(self):
+        """Batch path for independent frames: a callable mapping stacked
+        pairs ``[B, H, W]`` (or ``[B, H, W, 3]``) to a stacked
+        :class:`MatchResult`. The reference rolls the batch as one
+        ``lax.scan``; here it is a loop over frames on the inputs' device."""
+        if self.backend == "parity":
+            raise NotImplementedError("parity backend is host-side; loop it")
+
+        def run(lefts, rights, device=None) -> dense.MatchResult:
+            frames = [self(lefts[b], rights[b], device) for b in range(lefts.shape[0])]
+            return dense.MatchResult(*(torch.stack(field) for field in zip(*frames)))
+
+        return run
+
+    def video(self, keyframe_interval: int = 8):
+        """Temporally seeded video path: a callable mapping stacked clips
+        ``[T, H, W]`` to a stacked :class:`MatchResult`. Non-keyframes skip
+        the coarse pyramid and run only the full-resolution refine seeded by
+        the previous frame's disparity; every ``keyframe_interval``-th frame
+        re-runs the full pyramid (``fused_refine.match_temporal_fused``)."""
+        if self.backend == "hierarchical-sgm":
+            raise NotImplementedError(
+                f"video() on {self.backend!r}: {_NOT_PORTED[self.backend]}"
+            )
+        if self.backend != "hierarchical-pallas":
+            raise NotImplementedError(
+                f"video() needs a hierarchical Pallas backend, got {self.backend!r}"
+            )
+        from stepth_tpu_torch.match import fused_refine
+
+        def run(lefts, rights, device=None) -> dense.MatchResult:
+            return fused_refine.match_temporal_fused(
+                lefts, rights, self.match, self.pyramid,
+                keyframe_interval=keyframe_interval, lr_check=self.lr_check,
+                device=device,
+            )
+
+        return run
+
+
+def flagship(num_disparities: int = 128) -> StereoModel:
+    """The reference's benchmark configuration: the exhaustive matcher
+    (``pallas`` backend), SAD, LR check."""
+    return StereoModel(
+        backend="pallas",
+        match=MatchConfig(
+            num_disparities=num_disparities, window=9, cost="sad", lr_threshold=1.0
+        ),
+    )

@@ -1,8 +1,11 @@
 """Plain PyTorch dense matcher and pyramid helpers vs the JAX reference.
 
-Pyramid helpers and the median are selections or fixed-order adds, so they
-must agree bit for bit; the rest agree to f32 rounding (rtol 1e-5: cumulative
-sums run in another order)."""
+Exact equality where the reference pins its twins bit-equal or the
+computation is selections, integers or fixed-order adds: census transform,
+census cost, popcount, right-view disparity, LR check, occlusion fill,
+pyramid helpers and the median. The rest agree to f32 rounding (rtol 1e-5:
+cumulative sums run in another order), and the dense backend end to end by
+the reference's "close" rule."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +19,7 @@ from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import dense, pyramid
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import np_
+from tests.torch_port import assert_close, np_
 
 
 def _t(a):
@@ -50,10 +53,89 @@ def test_cost_volume(rng, cost):
     np.testing.assert_allclose(np_(got), np_(want), rtol=1e-5)
 
 
-def test_cost_volume_census_waits_for_slice_2(rng):
-    g = _t(rng.uniform(0, 255, (8, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        dense.cost_volume(g, g, MatchConfig(cost="census"))
+@pytest.mark.parametrize("census_window", [5, 7])
+def test_cost_volume_census_exact(rng, census_window):
+    """Census Hamming cost: integers, so exactly the reference's."""
+    left, right = make_pair(rng, h=24, w=40, shift=3)
+    lg, rg = left.astype(np.float32), right.astype(np.float32)
+    cfg = dict(num_disparities=8, cost="census", census_window=census_window)
+    want = ref_dense.cost_volume(jnp.asarray(lg), jnp.asarray(rg), RefMatchConfig(**cfg))
+    got = dense.cost_volume(_t(lg), _t(rg), MatchConfig(**cfg))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(np_(got), np_(want))
+
+
+@pytest.mark.parametrize("window", [3, 5, 7, 9])
+def test_census_transform_bit_equal(rng, window):
+    """The int32 planes carry the reference's uint32 bits (P = 1, 1, 2, 3),
+    including plateaus where ``gray > neighbour`` ties."""
+    g = rng.uniform(0, 255, (23, 41)).astype(np.float32)
+    g[3:9, 4:12] = 100.0
+    want = np.asarray(ref_dense.census_transform(jnp.asarray(g), window))
+    got = dense.census_transform(_t(g), window)
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(np_(got).view(np.uint32), want)
+    lc, rc = dense.census_pair(_t(g), _t(g[::-1]), window)
+    np.testing.assert_array_equal(np_(lc), np_(dense.census_planes(_t(g), window)))
+    np.testing.assert_array_equal(np_(rc), np_(dense.census_planes(_t(g[::-1]), window)))
+
+
+def test_popcount32(rng):
+    x = rng.integers(-(2**31), 2**31, (1000,), dtype=np.int64).astype(np.int32)
+    x[:4] = [0, -1, -(2**31), 2**31 - 1]
+    want = [bin(int(v) & 0xFFFFFFFF).count("1") for v in x]
+    np.testing.assert_array_equal(np_(dense.popcount32(_t(x))), want)
+
+
+def test_right_disparity_from_volume_exact(rng):
+    agg = rng.integers(0, 6, (10, 20, 8)).astype(np.float32)  # many ties
+    want = ref_dense.right_disparity_from_volume(jnp.asarray(agg))
+    np.testing.assert_array_equal(np_(dense.right_disparity_from_volume(_t(agg))), np_(want))
+
+
+@pytest.mark.parametrize("num_disparities", [16, 130, None])
+def test_lr_consistency_exact(rng, num_disparities):
+    """The closed form equals the reference's sweep: shifts past D, the
+    edge column (``xr = 0``), negative disparities and −1e6 right views."""
+    dl = rng.uniform(-2, 20, (32, 130)).astype(np.float32)
+    dl[:, :5] = 0.5
+    dl[2, 3] = 2.5  # round half to even
+    dr = rng.uniform(0, 20, (32, 130)).astype(np.float32)
+    dr[4] = -1e6
+    want = np.asarray(ref_dense.lr_consistency(jnp.asarray(dl), jnp.asarray(dr), 1.0,
+                                               num_disparities))
+    got = dense.lr_consistency(_t(dl), _t(dr), 1.0, num_disparities)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(np_(got), want)
+    assert 0 < want.mean() < 1
+
+
+def test_fill_invalid_exact(rng):
+    disp = rng.uniform(0, 60, (48, 200)).astype(np.float32)
+    valid = rng.uniform(size=(48, 200)) > 0.4
+    valid[5] = False  # an all-invalid row
+    valid[7] = True
+    valid[:, :3] = False  # invalid left border
+    valid[9, -4:] = False  # invalid right border
+    want = np.asarray(ref_dense.fill_invalid(disp, valid))
+    np.testing.assert_array_equal(np_(dense.fill_invalid(_t(disp), _t(valid))), want)
+
+
+@pytest.mark.parametrize("lr_threshold", [None, 1.0])
+@pytest.mark.parametrize("cost", ["sad", "census"])
+def test_match_pair_matches_reference(rng, cost, lr_threshold):
+    """The dense backend end to end: the "close" rule on the disparities
+    (box sums are cumulative sums in another order), equal masks for
+    census, whose costs are integers."""
+    left, right = make_pair(rng, h=32, w=64, shift=4)
+    cfg = dict(num_disparities=16, cost=cost, lr_threshold=lr_threshold, uniqueness=0.1)
+    want = ref_dense.match_pair(left, right, RefMatchConfig(**cfg))
+    got = dense.match_pair(left, right, MatchConfig(**cfg), device="cpu")
+    assert_close(np_(want.disparity), np_(want.valid), np_(got.disparity), np_(got.valid))
+    np.testing.assert_allclose(np_(got.cost), np_(want.cost), rtol=1e-5, atol=1e-3)
+    if cost == "census":
+        np.testing.assert_array_equal(np_(got.valid), np_(want.valid))
+        np.testing.assert_array_equal(np_(got.disparity), np_(want.disparity))
 
 
 @pytest.mark.parametrize("window", [1, 5, 9])

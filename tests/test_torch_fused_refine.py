@@ -2,8 +2,9 @@
 
 The plan (``tile_windows_from_prior``) must equal the reference's as
 integers. The plain ``refine_level`` is held to
-``pallas_refine.refine_level(interpret=True)`` with the "close" rule, and (on
-a card) the CUDA kernel to the plain version."""
+``pallas_refine.refine_level(interpret=True)``: with the "close" rule in the
+SAD/SSD cases, exactly (disparity and right view) for census and
+``lr=True``; on a card, the CUDA kernel to the plain version."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +13,9 @@ import torch
 
 from stepth_tpu.config import MatchConfig as RefMatchConfig
 from stepth_tpu.match import pallas_refine
-from stepth_tpu_torch.config import MatchConfig
-from stepth_tpu_torch.match import fused_refine
+from stepth_tpu_torch.config import MatchConfig, PyramidConfig
+from stepth_tpu_torch.match import fused_refine, pyramid
+from stepth_tpu_torch.utils import scenes
 
 from tests.test_match_dense import make_pair
 from tests.torch_port import assert_close, cuda, np_  # noqa: F401 (fixture)
@@ -114,10 +116,101 @@ def test_plain_refine_ssd_row_window_matches_pallas(rng):
     assert_close(np_(want), everywhere, np_(got), everywhere)
 
 
-def test_right_view_waits_for_slice_2():
-    g = torch.zeros((16, 128))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        fused_refine.refine_level(g, g, g, MatchConfig(), 2, 16, lr=True)
+def _refine_both(lg, rg, prior, cfg, **args):
+    want = pallas_refine.refine_level(
+        jnp.asarray(lg), jnp.asarray(rg), jnp.asarray(prior), RefMatchConfig(**cfg),
+        interpret=True, **args,
+    )
+    got = fused_refine.refine_level(
+        torch.from_numpy(lg), torch.from_numpy(rg), torch.from_numpy(prior),
+        MatchConfig(**cfg), **args,
+    )
+    return want, got
+
+
+@pytest.mark.parametrize("kind", ["smooth", "step", "noise"])
+def test_right_view_matches_pallas(rng, kind):
+    """``lr=True``: both outputs exactly equal. The right view comes from each
+    tile's whole 256-column cost region with circular box sums: a port that
+    adds only the tile's own output columns, or zero-pads the region, fails
+    the step prior (a tile with nw = 2) and the white-noise texture."""
+    h, w = 32, 384
+    if kind == "noise":
+        tex = rng.uniform(0, 255, (h, w + SHIFT)).astype(np.float32)
+        lg, rg = tex[:, :w], np.ascontiguousarray(tex[:, SHIFT:])
+    else:
+        left, right = make_pair(rng, h=h, w=w, shift=SHIFT)
+        lg, rg = left.astype(np.float32), right.astype(np.float32)
+    prior = _prior(rng, "step" if kind == "step" else "smooth", h, w)
+    args = dict(radius=2, max_base=32, tile_rows=32, max_windows=16, lr=True)
+    (want_d, want_r), (got_d, got_r) = _refine_both(lg, rg, prior, dict(window=9), **args)
+    np.testing.assert_array_equal(np_(got_d), np_(want_d))
+    np.testing.assert_array_equal(np_(got_r), np_(want_r))
+    assert (np_(want_r) == -1e6).any() and (np_(want_r) > -1e6).mean() > 0.9
+    if kind == "step":
+        _, nw, _ = fused_refine.plan_level(torch.from_numpy(prior), 32, 32, 2, 16)
+        assert int(nw.max()) > 1
+    # the forward disparity is the lr=False one
+    np.testing.assert_array_equal(np_(got_d), np_(fused_refine.refine_level(
+        torch.from_numpy(lg), torch.from_numpy(rg), torch.from_numpy(prior),
+        MatchConfig(window=9), 2, 32, 32, max_windows=16)))
+
+
+@pytest.mark.parametrize("census_window", [5, 7])
+def test_census_refine_matches_pallas_exactly(rng, census_window):
+    left, right = make_pair(rng, h=64, w=256, shift=SHIFT)
+    lg, rg = left.astype(np.float32), right.astype(np.float32)
+    prior = _prior(rng, "step", 64, 256)
+    cfg = dict(window=9, cost="census", census_window=census_window)
+    want, got = _refine_both(lg, rg, prior, cfg, radius=2, max_base=32, tile_rows=32,
+                             max_windows=16)
+    np.testing.assert_array_equal(np_(got), np_(want))
+
+
+def test_census_right_view_r4_row_window_matches_pallas(rng):
+    """Census window 5 with R=4, window 7, an unaligned shape, tile_rows
+    rounded up from 20 and a row-shard window, both outputs exact."""
+    left, right = make_pair(rng, h=50, w=200, shift=SHIFT)
+    lg, rg = left.astype(np.float32), right.astype(np.float32)
+    prior = _prior(rng, "step", 50, 200)
+    cfg = dict(window=7, cost="census", census_window=5)
+    args = dict(radius=4, max_base=32, tile_rows=20, max_windows=16, g_row0=-3, g_h=40,
+                lr=True)
+    (want_d, want_r), (got_d, got_r) = _refine_both(lg, rg, prior, cfg, **args)
+    np.testing.assert_array_equal(np_(got_d), np_(want_d))
+    np.testing.assert_array_equal(np_(got_r), np_(want_r))
+
+
+@pytest.mark.parametrize("scene", ["shifted", "box"])
+def test_plans_equal_on_census_scenes(rng, scene):
+    """The tile means of the plan sum in another order than XLA's CPU reduce
+    (ROADMAP Queue 3); on the production path's census priors every level's
+    plan still equals the reference's."""
+    if scene == "box":
+        sc = scenes.make_scene("box", 96, 256, 32, seed=1)
+        left, right = sc.left, sc.right
+    else:
+        left, right = make_pair(rng, h=96, w=256, shift=10)
+    cfg = MatchConfig(num_disparities=32, window=9, cost="census")
+    pyr = PyramidConfig(levels=3, coarsest_disparities=8)
+    lefts = [torch.as_tensor(left, dtype=torch.float32)]
+    rights = [torch.as_tensor(right, dtype=torch.float32)]
+    for _ in range(pyr.levels - 1):
+        lefts.append(pyramid.downsample2(lefts[-1]))
+        rights.append(pyramid.downsample2(rights[-1]))
+    coarse = MatchConfig(num_disparities=8, window=9, cost="census", lr_threshold=None)
+    disp = fused_refine.PLAIN.match(lefts[-1], rights[-1], coarse)[0]
+    max_base, multi = 8, 0
+    for lvl in (1, 0):
+        h, w = lefts[lvl].shape
+        prior = np_(pyramid.upsample2_disparity(disp, h, w))
+        max_base *= 2
+        padded = np.pad(prior, ((0, -h % 64), (0, -w % 128)), mode="edge")
+        multi += int((_plans_equal(padded, 64, max_base, 2, 16) > 1).sum())
+        disp = fused_refine.refine_level(lefts[lvl], rights[lvl], torch.from_numpy(prior),
+                                         cfg, 2, max_base, 64, max_windows=16)
+    if scene == "box":
+        assert multi > 0
 
 
 @pytest.mark.cuda
@@ -136,3 +229,20 @@ def test_kernel_matches_plain_on_card(cuda, kind):
     want = fused_refine.refine_level_plain(lg, rg, prior, *args, max_windows=16)
     everywhere = np.ones(lg.shape, bool)
     assert_close(np_(want), everywhere, np_(got), everywhere)
+
+
+@pytest.mark.cuda
+def test_census_right_view_kernel_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(7)
+    left, right = make_pair(rng, h=270, w=480, shift=SHIFT)
+    lg = torch.as_tensor(left, dtype=torch.float32, device=cuda).contiguous()
+    rg = torch.as_tensor(right, dtype=torch.float32, device=cuda).contiguous()
+    prior = torch.as_tensor(_prior(rng, "step", 270, 480), device=cuda)
+    args = (MatchConfig(window=9, cost="census"), 2, 32, 64)
+    before = (fused_refine.K2.launches, fused_refine.K2_EMIT.launches)
+    got = fused_refine.refine_level(lg, rg, prior, *args, max_windows=16, lr=True)
+    torch.cuda.synchronize()
+    assert (fused_refine.K2.launches, fused_refine.K2_EMIT.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_refine.refine_level_plain(lg, rg, prior, *args, max_windows=16, lr=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
