@@ -19,7 +19,12 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    d. K4 and K5 at 1080×1920 on the production maps and on a random map;
    e. at a small unaligned size, the branches the main paths do not take
       (SSD, uniqueness, windows 5 and 7, census windows 5 and 9, a row
-      window ``g_row0``/``g_h``, R=4, the right view with R=4).
+      window ``g_row0``/``g_h``, R=4, the right view with R=4);
+   f. the SGM kernels: K6 at the 135×240 coarse level (D=16, window 9, SAD
+      and census) on both scenes and at 1080×1920 (D=64, window 5, SAD);
+      K7 in each of the 8 directions, K8 and K9 (2 directions) at
+      1080×1920 D=64; K7 and K8 of the coarse level; at 70×300, D=24 and
+      D=144, census window 5, SSD, uniqueness and bf16 volumes.
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -30,13 +35,21 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    c. ``flagship()`` (the ``pallas`` backend);
    d. ``video(keyframe_interval=4)`` of the production model on a 5-frame
       clip whose disparity drifts 1 px per frame;
-5. times (CUDA events, median of ``REPS`` runs after a warm-up) of kernel
-   and plain paths, per kernel and per frame.
+   e. ``hierarchical-sgm`` with SAD (path 1) and in production (path 2);
+   f. ``sgm-pallas``, 4 directions, D=64, window 5, LR (path 3), and its 8-
+      and 2-direction branches;
+   g. ``video(keyframe_interval=4)`` of the path-2 model on the clip;
+5. times (CUDA events, median of ``REPS`` runs after a warm-up; the plain
+   SGM paths at 1080p loop over thousands of scan steps and take
+   ``PLAIN_SGM_REPS``) of kernel and plain paths, per kernel and per frame,
+   and each kernel's bound: the larger of its bytes over the card's memory
+   rate and its operations over its f32 rate.
 
 Any failed check raises and the script exits non-zero. The line before the
-last is a JSON summary of the kernels (launches from the production run);
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits 2 and prints no result. Imports nothing of JAX.
+last is a JSON summary of the kernels (launches from the run named in each
+entry's ``path``); the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device it exits 2 and prints no result. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -51,7 +64,26 @@ import torch
 
 SEED = 0  # seed of the smooth pair, the clip and the random maps
 REPS = 10  # timed runs per measurement (median)
+PLAIN_SGM_REPS = 3  # timed runs of a plain SGM path at 1080p
 MAX_ERR = 0.0  # kernel vs plain version: bit-equal
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_F32 = 67e12  # H100 SXM f32 operations/s outside the tensor cores
+
+
+def bound(nbytes, ops):
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    to move ``nbytes`` (each input read once, each output written once) and
+    do ``ops`` f32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cost_ops(cfg, planes):
+    """f32 operations per (pixel, d) of a cost and its separable box sums:
+    sub + abs (or mul), or xor + popcount per census plane and the adds
+    joining them; ``window − 1`` adds per axis."""
+    cost = 3 * planes - 1 if cfg.cost == "census" else 2
+    return cost + 2 * (cfg.window - 1)
 
 
 def make_pair(h, w, shift=24, seed=0):
@@ -114,14 +146,14 @@ def check_k1(name, want, got):
     return max(errs)
 
 
-def cuda_ms(fn):
-    """Median ms of ``fn`` over ``REPS`` runs, by CUDA events, after a
+def cuda_ms(fn, reps=REPS):
+    """Median ms of ``fn`` over ``reps`` runs, by CUDA events, after a
     warm-up."""
-    for _ in range(2):
+    for _ in range(2 if reps > 3 else 1):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -138,8 +170,10 @@ def main() -> int:
         return 2
 
     from stepth_tpu_torch import kernels
-    from stepth_tpu_torch.config import MatchConfig, PyramidConfig
-    from stepth_tpu_torch.match import dense, fused_dense, fused_post, fused_refine, pyramid
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
+    from stepth_tpu_torch.match import (dense, fused_dense, fused_post, fused_refine,
+                                        fused_sgm, pyramid)
+    from stepth_tpu_torch.match.sgm import penalties
     from stepth_tpu_torch.models.stereo import StereoModel, flagship
     from stepth_tpu_torch.utils import scenes
 
@@ -168,7 +202,9 @@ def main() -> int:
             print("  ptxas:", line.strip())
 
     KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
-               "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5}
+               "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5,
+               "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9}
+    NO_SGM = {"K6": 0, "K7": 0, "K8": 0, "K9": 0}
     errs = {n: 0.0 for n in KERNELS}
     times = {}
 
@@ -221,6 +257,8 @@ def main() -> int:
         max_base = pyr.coarsest_disparities
         multi = 0
         k2_ms = k2_plain_ms = plan_ms = 0.0
+        planes = 2 if cfg.cost == "census" else 1  # census window 7: 48 bits
+        cand = k2_bytes = 0  # K2's work over the three levels, for its bound
         for lvl in range(pyr.levels - 2, -1, -1):
             h, w = lefts[lvl].shape
             prior = pyramid.upsample2_disparity(disp, h, w)
@@ -235,6 +273,12 @@ def main() -> int:
             torch.cuda.synchronize()
             n_multi = int((nw > 1).sum())
             multi += n_multi
+            nr, nc = nw.shape  # candidates the plan runs: windows x (2R+1) per pixel
+            rows = (h - torch.arange(nr, device=dev) * tr).clamp(max=tr)
+            cols = (w - torch.arange(nc, device=dev) * 128).clamp(max=128)
+            cand += int((nw.clamp(min=1) * rows[:, None] * cols[None, :]).sum()) * (2 * radius + 1)
+            k2_bytes += (2 * planes * h * w * 4 + 4 * (bases.numel() + nw.numel())
+                         + 4 * h * w + (8 * h * w if lr else 0))
             tag = (f"{scene} {cfg.cost} K2 level {lvl} {h}x{w} R={radius} lr={lr} "
                    f"K={bases.shape[-1]} tiles nw>1: {n_multi}/{nw.numel()}")
             if lr:
@@ -256,10 +300,12 @@ def main() -> int:
               f"plain {k2_plain_ms:.4f} ms, plan {plan_ms:.4f} ms; tiles nw>1: {multi}")
         if scene == "box" and multi == 0:
             raise AssertionError("box scene planned no multi-window tile")
+        work[(scene, cfg.cost)] = bound(k2_bytes, cand * (cost_ops(cfg, planes) + 1))
         return disp, disp_r, k1, (k2_ms, k2_plain_ms)
 
     # 3a/3b. each kernel against its plain version, at the main paths' shapes
     print("== kernels vs plain versions on the card")
+    work = {}  # (scene, cost) -> K2's bound over three levels
     prod_maps = {}
     for scene, (left, right) in pairs.items():
         lg = dense.grayscale(left, dev)
@@ -384,6 +430,134 @@ def main() -> int:
         else:
             err("K2", check_map(tag, want, got))
 
+    # 3f. the SGM kernels against their plain versions: K6, K7 in every
+    # direction (kernel and plain accumulators compared after each launch),
+    # K8 onto the sum of all directions but the last, K9 on a 2-direction sum
+    print("== SGM kernels vs plain versions on the card")
+    sgm4 = SGMConfig(directions=4)
+    arrows = {(2, False, 0): "→x", (2, True, 0): "←x", (1, False, 1): "↘",
+              (1, False, -1): "↙", (1, True, 1): "↗", (1, True, -1): "↖",
+              (1, False, 0): "↓y", (1, True, 0): "↑y"}
+
+    def check_maps(name, want, got, names=("disp", "disp_r", "cbest", "valid")):
+        return max(check_map(f"{name} {n}", a, b) for n, a, b in zip(names, want, got))
+
+    def check_sgm(tag, lg, rg, cfg, dtype, ndir, k9=False):
+        """K6, K7 for each of the ``ndir`` directions in order, K8 (``ndir``
+        4 or 8) and, with ``k9``, K9 (+ K4 under LR) after the first two.
+        Returns the plain volume and the sums of 2 and of ``ndir − 1``
+        directions."""
+        vol = fused_sgm.aggregated_volume(lg, rg, cfg, dtype)
+        vol_p = fused_sgm.aggregated_volume_plain(lg, rg, cfg, dtype)
+        torch.cuda.synchronize()
+        err("K6", check_map(f"{tag} K6", vol_p.float(), vol.float()))
+        del vol
+        p1, p2 = penalties(cfg, sgm4)
+        dirs = fused_sgm.directions(ndir)
+        acc = acc_p = None
+        sums = {}
+        for i, (axis, reverse, shift) in enumerate(dirs):
+            if i == len(dirs) - 1:
+                sums[ndir - 1] = acc_p.clone()
+                if ndir > 2:
+                    got = fused_sgm.scan_wta_direction(vol_p, acc_p, p1, p2, cfg)
+                    want = fused_sgm.scan_wta_direction_plain(vol_p, acc_p, p1, p2, cfg)
+                    torch.cuda.synchronize()
+                    err("K8", check_maps(f"{tag} K8", want, got,
+                                         ("disp", "disp_r", "cbest", "uok")))
+            kw = dict(axis=axis, reverse=reverse, shift=shift)
+            acc = fused_sgm.scan_direction(vol_p, acc, p1, p2, **kw)
+            acc_p = fused_sgm.scan_direction_plain(vol_p, acc_p, p1, p2, **kw)
+            torch.cuda.synchronize()
+            err("K7", check_map(f"{tag} K7 {arrows[(axis, reverse, shift)]}",
+                                acc_p.float(), acc.float()))
+            if i == 1:
+                sums[2] = acc_p.clone()
+                if k9:
+                    want = fused_sgm.wta_from_volume_plain(acc_p, cfg)
+                    got = fused_sgm.wta_from_volume(acc_p, cfg)
+                    torch.cuda.synchronize()
+                    err("K9", check_maps(f"{tag} K9 (2 directions)", want, got))
+        return vol_p, sums
+
+    coarse_vols = {}
+    for scene, (left, right) in pairs.items():
+        lg = dense.grayscale(left, dev)
+        rg = dense.grayscale(right, dev)
+        for _ in range(pyr.levels - 1):
+            lg, rg = pyramid.downsample2(lg), pyramid.downsample2(rg)
+        for cfg in (sad, census):
+            c_cfg = coarse_of(cfg)
+            tag = f"{scene} {cfg.cost} {tuple(lg.shape)} D={c_cfg.num_disparities} window 9"
+            coarse_vols[(scene, cfg.cost)] = (lg, rg, c_cfg, *check_sgm(
+                tag, lg, rg, c_cfg, torch.float32, 4))
+    sgm_cfg = MatchConfig(num_disparities=64, window=5, cost="sad", lr_threshold=1.0)
+    lg, rg = (dense.grayscale(a, dev) for a in pairs["make_pair"])
+    vol3, sums3 = check_sgm(f"make_pair sad {H}x{W} D=64 window 5", lg, rg, sgm_cfg,
+                            torch.float32, 8, k9=True)
+
+    print("== SGM off-path branches vs plain versions (70x300)")
+    sl, sr = make_pair(h, w, shift=12, seed=SEED)
+    sl, sr = (torch.as_tensor(a, device=dev).contiguous() for a in (sl, sr))
+    for cost, cw, D, win, uniq, dtype, ndir in (
+            ("ssd", 7, 24, 5, 0.1, torch.float32, 8),
+            ("census", 5, 24, 5, 0.1, torch.bfloat16, 4),
+            ("census", 5, 144, 5, None, torch.float32, 4),
+            ("sad", 7, 144, 7, 0.1, torch.bfloat16, 8)):
+        c = MatchConfig(num_disparities=D, window=win, cost=cost, census_window=cw,
+                        uniqueness=uniq, lr_threshold=1.0)
+        tag = (f"{h}x{w} {cost} census_window {cw} D={D} window {win} uniqueness {uniq} "
+               f"{str(dtype)[6:]} {ndir} directions")
+        check_sgm(tag, sl, sr, c, dtype, ndir, k9=True)
+
+    # the SGM kernels' times: the sgm-pallas shapes (1080p, D=64) and the
+    # hierarchical-sgm coarse level (135x240, D=16, census)
+    p1, p2 = penalties(sgm_cfg, sgm4)
+    cfg_nolr = MatchConfig(num_disparities=64, window=5, cost="sad", lr_threshold=None)
+
+    def scans(scan_fn, vol, p1, p2):
+        """The three K7 launches of a 4-direction frame (→x, ←x, ↓y)."""
+        acc = None
+        for axis, reverse, shift in fused_sgm.directions(4)[:3]:
+            acc = scan_fn(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+        return acc
+
+    pr = PLAIN_SGM_REPS
+    times["K6"] = (cuda_ms(lambda: fused_sgm.aggregated_volume(lg, rg, sgm_cfg)),
+                   cuda_ms(lambda: fused_sgm.aggregated_volume_plain(lg, rg, sgm_cfg), pr))
+    k7 = (cuda_ms(lambda: scans(fused_sgm.scan_direction, vol3, p1, p2)),
+          cuda_ms(lambda: scans(fused_sgm.scan_direction_plain, vol3, p1, p2), pr))
+    times["K7"] = (k7[0] / 3, k7[1] / 3)  # per launch, over the three of a frame
+    acc3 = scans(fused_sgm.scan_direction, vol3, p1, p2)
+    times["K8"] = (cuda_ms(lambda: fused_sgm.scan_wta_direction(vol3, acc3, p1, p2, sgm_cfg)),
+                   cuda_ms(lambda: fused_sgm.scan_wta_direction_plain(vol3, acc3, p1, p2,
+                                                                       sgm_cfg), pr))
+    times["K9"] = (cuda_ms(lambda: fused_sgm.wta_from_volume(sums3[2], cfg_nolr)),
+                   cuda_ms(lambda: fused_sgm.wta_from_volume_plain(sums3[2], cfg_nolr), pr))
+    scratch = vol3.clone()
+    for axis, reverse, shift in fused_sgm.directions(8):
+        ms = cuda_ms(lambda: fused_sgm.scan_direction(vol3, scratch, p1, p2, axis=axis,
+                                                      reverse=reverse, shift=shift))
+        print(f"  K7 {arrows[(axis, reverse, shift)]} {H}x{W} D=64: {ms:.4f} ms")
+    del scratch
+    for name in ("K6", "K7", "K8", "K9"):
+        print(f"  {name} {H}x{W} D=64: kernel {times[name][0]:.4f} ms, "
+              f"plain {times[name][1]:.4f} ms (plain: median of {pr})")
+    lg_c, rg_c, c_cfg, vol_c, sums_c = coarse_vols[("make_pair", "census")]
+    p1c, p2c = penalties(c_cfg, sgm4)
+    acc_c = sums_c[3]
+    coarse_times = {
+        "K6": (lambda: fused_sgm.aggregated_volume(lg_c, rg_c, c_cfg),
+               lambda: fused_sgm.aggregated_volume_plain(lg_c, rg_c, c_cfg)),
+        "K7 x3": (lambda: scans(fused_sgm.scan_direction, vol_c, p1c, p2c),
+                  lambda: scans(fused_sgm.scan_direction_plain, vol_c, p1c, p2c)),
+        "K8": (lambda: fused_sgm.scan_wta_direction(vol_c, acc_c, p1c, p2c, c_cfg),
+               lambda: fused_sgm.scan_wta_direction_plain(vol_c, acc_c, p1c, p2c, c_cfg)),
+    }
+    for name, (k_fn, p_fn) in coarse_times.items():
+        k_ms, p_ms = times[f"{name} census 135x240 D=16"] = (cuda_ms(k_fn), cuda_ms(p_fn))
+        print(f"  {name} census 135x240 D=16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
     # 4a. the SAD slice end to end, through the user's entry point
     print(f"== end to end: StereoModel(backend='hierarchical-pallas'), sad, {H}x{W}")
     model = StereoModel(backend="hierarchical-pallas", match=sad, pyramid=pyr)
@@ -391,7 +565,7 @@ def main() -> int:
     bl, br = (torch.as_tensor(a, device=dev) for a in pairs["box"])
     res, launches = drive(lambda: model(left, right))
     print(f"  launches per frame: {launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0}
+    want_launches = {"K1": 1, "K2": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0, **NO_SGM}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches}")
 
@@ -435,7 +609,7 @@ def main() -> int:
         l, r, census, pyr, lr_check=True))
     res, prod_launches = drive(lambda: prod(left, right))
     print(f"  launches per frame: {prod_launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1}
+    want_launches = {"K1": 1, "K2": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
     if prod_launches != want_launches:
         raise AssertionError(f"launch counts {prod_launches} != {want_launches}")
     check_median("production", res.disparity)
@@ -450,7 +624,7 @@ def main() -> int:
     flag = flagship()
     res, flag_launches = drive(lambda: flag(left, right))
     print(f"  launches per frame: {flag_launches}")
-    want_launches = {"K1": 1, "K2": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1}
+    want_launches = {"K1": 1, "K2": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
     if flag_launches != want_launches:
         raise AssertionError(f"launch counts {flag_launches} != {want_launches}")
     check_median("flagship", res.disparity)
@@ -467,7 +641,7 @@ def main() -> int:
     run = prod.video(keyframe_interval=4)
     vres, video_launches = drive(lambda: run(clip_l, clip_r))
     print(f"  launches for 2 keyframes + 3 seeded frames: {video_launches}")
-    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5}
+    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5, **NO_SGM}
     if video_launches != want_launches:
         raise AssertionError(f"launch counts {video_launches} != {want_launches}")
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True)
@@ -481,9 +655,71 @@ def main() -> int:
         fused_refine.FUSED, clip_l[1], clip_r[1], vres.disparity[0], census, pyr,
         lr_check=True))
     print(f"  launches per seeded frame: {seeded_launches}")
-    want_launches = {"K1": 0, "K2": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1}
+    want_launches = {"K1": 0, "K2": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
     if seeded_launches != want_launches:
         raise AssertionError(f"launch counts {seeded_launches} != {want_launches}")
+
+    def drive_checked(name, fn, want):
+        """``drive(fn)``, then the launch counts against ``want`` (zero for
+        kernels it does not name)."""
+        out, launches = drive(fn)
+        print(f"  {name}: launches {launches}")
+        want = {n: want.get(n, 0) for n in KERNELS}
+        if launches != want:
+            raise AssertionError(f"{name}: launch counts {launches} != {want}")
+        return out, launches
+
+    # 4e. hierarchical-sgm: path 1 (SAD) and path 2 (production)
+    sgm_paths = {}
+    for tag, cfg, lr_check, want in (
+            ("path 1, hierarchical-sgm sad", sad, False,
+             {"K6": 1, "K7": 3, "K8": 1, "K5": 1, "K3": 2, "K2": 3}),
+            ("path 2, hierarchical-sgm production", census, True,
+             {"K6": 1, "K7": 3, "K8": 1, "K5": 2, "K3": 2, "K2": 3, "K2 emit": 1, "K4": 1})):
+        print(f"== end to end: {tag}, {H}x{W}")
+        m = StereoModel(backend="hierarchical-sgm", match=cfg, pyramid=pyr, sgm=sgm4,
+                        lr_check=lr_check)
+        plain = (lambda l, r, cfg=cfg, lr_check=lr_check: fused_refine.match_hierarchical_plain(
+            l, r, cfg, pyr, lr_check=lr_check, coarse_backend="sgm", sgm=sgm4))
+        res, launches = drive_checked(tag, lambda: m(left, right), want)
+        check_median(tag, res.disparity)
+        check_output(f"make_pair {tag}", res, left, right, plain)
+        res_box = m(bl, br)
+        check_output(f"box {tag}", res_box, bl, br, plain)
+        box_quality(tag, res_box)
+        sgm_paths[tag] = (m, plain, launches)
+
+    # 4f. sgm-pallas: path 3 (4 directions), and its 8- and 2-direction branches
+    for ndir, want in ((4, {"K6": 1, "K7": 3, "K8": 1, "K4": 1, "K5": 1, "K3": 1}),
+                       (8, {"K6": 1, "K7": 7, "K8": 1, "K4": 1, "K5": 1, "K3": 1}),
+                       (2, {"K6": 1, "K7": 2, "K9": 1, "K4": 1, "K5": 1, "K3": 1})):
+        tag = f"path 3, sgm-pallas {ndir} directions D=64 window 5 LR"
+        print(f"== end to end: {tag}, {H}x{W}")
+        s_cfg = SGMConfig(directions=ndir)
+        m = StereoModel(backend="sgm-pallas", match=sgm_cfg, sgm=s_cfg)
+        plain = (lambda l, r, s_cfg=s_cfg: fused_sgm.match_pair_sgm_plain(l, r, sgm_cfg, s_cfg))
+        res, launches = drive_checked(tag, lambda: m(left, right), want)
+        check_median(tag, res.disparity)
+        print(f"  make_pair valid share {float(res.valid.float().mean()):.4f}")
+        check_output(f"make_pair {tag}", res, left, right, plain)
+        sgm_paths[tag] = (m, plain, launches)
+
+    # 4g. video(keyframe_interval=4) of the path-2 model on the drifting clip
+    print(f"== end to end: hierarchical-sgm production video(keyframe_interval=4), "
+          f"5 frames {H}x{W}")
+    hs_prod = sgm_paths["path 2, hierarchical-sgm production"][0]
+    run = hs_prod.video(keyframe_interval=4)
+    vres, _ = drive_checked("2 keyframes + 3 seeded frames", lambda: run(clip_l, clip_r),
+                            {"K6": 2, "K7": 6, "K8": 2, "K2": 9, "K2 emit": 5, "K4": 5,
+                             "K5": 7, "K3": 7})
+    vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True,
+                                               coarse_backend="sgm", sgm=sgm4)
+    for t, s in enumerate(shifts):
+        check_median(f"sgm video frame {t}", vres.disparity[t], float(s))
+        check_equal(f"sgm video frame {t} kernel path vs plain path", vplain.disparity[t],
+                    vplain.valid[t], vres.disparity[t], vres.valid[t])
+        if not torch.equal(vplain.valid[t], vres.valid[t]):
+            raise AssertionError(f"sgm video frame {t}: valid masks differ")
 
     # 5. per-frame times
     print(f"== times (CUDA events, median of {REPS} after warm-up), card: {smi[0]}")
@@ -498,9 +734,15 @@ def main() -> int:
                                                    census, pyr, lr_check=True))
             for p in (fused_refine.FUSED, fused_refine.PLAIN)),
     }
+    for tag, (m, plain, _) in sgm_paths.items():
+        frame[tag] = (lambda m=m: m(left, right), lambda plain=plain: plain(left, right))
+        if tag.startswith("path 1") or tag.startswith("path 2"):
+            frame[f"{tag}, box"] = (lambda m=m: m(bl, br), lambda plain=plain: plain(bl, br))
     for name, (k_fn, p_fn) in frame.items():
-        k_ms, p_ms = cuda_ms(k_fn), cuda_ms(p_fn)
-        print(f"  {H}x{W} {name}: kernel path {k_ms:.4f} ms/frame, plain path {p_ms:.4f} ms/frame")
+        reps = PLAIN_SGM_REPS if name.startswith("path 3") else REPS
+        k_ms, p_ms = cuda_ms(k_fn), cuda_ms(p_fn, reps)
+        print(f"  {H}x{W} {name}: kernel path {k_ms:.4f} ms/frame, plain path {p_ms:.4f} "
+              f"ms/frame (plain: median of {reps})")
     t0 = time.perf_counter()
     for _ in range(REPS):
         prod(left, right)
@@ -510,12 +752,46 @@ def main() -> int:
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
+    # bounds at the shapes each kernel was timed at: K1-K5 on the production
+    # path (K1 and K2 census, planes in the bytes; K2 counts the candidates
+    # its plans ran), K6-K9 on sgm-pallas at 1080p, D=64 (K7 per launch,
+    # averaged over the three of a frame; ops per (pixel, d): a scan step ~8,
+    # K8 ~11, K9 3)
+    hc, wc = 135, 240
+    HW, DV = H * W, 64 * H * W
+    ops6 = cost_ops(sgm_cfg, 1)
+    bounds = {
+        "K1": bound(2 * 2 * hc * wc * 4 + 16 * hc * wc, hc * wc * 16 * (cost_ops(census, 2) + 2)),
+        "K2": work[("make_pair", "census")],
+        "K2 emit": bound(8 * HW + 4 * HW + 4 * nr * nc * K, 0),
+        "K3": bound(8 * HW, 38 * HW),
+        "K4": bound(9 * HW, 12 * HW),
+        "K5": bound(9 * HW, 4 * HW),
+        "K6": bound(8 * HW + 4 * DV, DV * ops6),
+        "K7": bound((2 + 3 + 3) / 3 * 4 * DV, 8 * DV),
+        "K8": bound(8 * DV + 16 * HW, 11 * DV),
+        "K9": bound(4 * DV + 16 * HW, 3 * DV),
+    }
+    path3 = "path 3, sgm-pallas 4 directions D=64 window 5 LR"
+    origin = {n: ("production, hierarchical-pallas", prod_launches) for n in KERNELS}
+    origin.update({n: (path3, sgm_paths[path3][2]) for n in ("K6", "K7", "K8")})
+    origin["K9"] = ("path 3, 2 directions", sgm_paths[
+        "path 3, sgm-pallas 2 directions D=64 window 5 LR"][2])
+    print(f"== kernels against their bounds (H100 SXM peaks: {PEAK_BYTES / 1e12} TB/s, "
+          f"{PEAK_F32 / 1e12} TFLOP/s f32), card: {smi[0]}")
+    for n in KERNELS:
+        print(f"  {n}: {times[n][0]:.4f} ms, bound {bounds[n][0]:.4f} ms ({bounds[n][1]}), "
+              f"{bounds[n][0] / times[n][0]:.1%} of it")
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": prod_launches[n], "max_abs_err": errs[n],
-         "ms": times[n][0], "plain_ms": times[n][1]}
+         "launches": origin[n][1][n], "path": origin[n][0], "max_abs_err": errs[n],
+         "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": bounds[n][0],
+         "bound_by": bounds[n][1], "library_ms": None}
         for n, k in KERNELS.items()
     ]}
+    for entry in summary["kernels"]:
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']}: not launched on {entry['path']}")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,8 +68,10 @@ class PyramidConfig:
 class SGMConfig:
     """Semi-global aggregation knobs (``directions`` ∈ {2, 4, 8}; ``p1``/``p2``
     per-pixel penalties scaled by ``window²`` when the volume is
-    box-aggregated). Carried for config parity; the SGM backends are not
-    ported yet."""
+    box-aggregated; both must be ≥ 0 on the CUDA kernels). ``volume_dtype``
+    is the stored volume's type in the ``sgm-pallas``/``hierarchical-sgm``
+    pipeline; ``step_block``/``lane_tile`` retile only the reference's TPU
+    grid and are carried for config parity. ``match.sgm`` re-exports it."""
 
     p1: float = 8.0
     p2: float = 32.0

@@ -24,8 +24,9 @@
 // plus its box halo into shared memory, (2) takes the vertical box sums,
 // (3) the horizontal box sums, over E = 128 + D - 1 columns so that the
 // right-view WTA of every output column finds costL(x+d, d) in the block,
-// and (4) updates the WTA state held in registers. The sums follow the
-// reference's association (common.cuh), so results match the plain version.
+// and (4) updates the WTA state held in registers. Stages (1)-(2) and the WTA
+// update are common.cuh's, shared with K6 and K9; the sums follow the
+// reference's association, so results match the plain version.
 
 #include "common.cuh"
 
@@ -59,41 +60,20 @@ __global__ void __launch_bounds__(NT) fused_dense_kernel(
   const int tid = threadIdx.x;
   const int t = tid % BX;
 
-  float best[PPT], cm1[PPT], cb[PPT], cp1[PPT], prev[PPT];
-  float bestr[PPT], runlag2[PPT], second[PPT];
-  int bestd[PPT], bestrd[PPT];
+  WtaState st[PPT];
+  float bestr[PPT];
+  int bestrd[PPT];
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
-    best[j] = kBig; cm1[j] = 0.f; cb[j] = kBig; cp1[j] = kBig; prev[j] = 0.f;
-    bestr[j] = kBig; runlag2[j] = kBig; second[j] = kBig;
-    bestd[j] = 0; bestrd[j] = 0;
+    st[j].init();
+    bestr[j] = kBig;
+    bestrd[j] = 0;
   }
 
   for (int d = 0; d < D; ++d) {
-    // (1) masked cost: 0 outside the image (zero-padded box sums)
-    for (int e = tid; e < SR * QC; e += NT) {
-      const int k = e / QC, q = e - (e / QC) * QC;
-      const int y = y0 - r + k, x = x0 - r + q;
-      float c = 0.f;
-      if (row_in_image(y, h, g_row0, g_h) && x >= 0 && x < w) {
-        const int xs = x - d < 0 ? 0 : x - d;
-        if (nplanes) {
-          c = (float)hamming(lc, rc, nplanes, (size_t)h * w, (size_t)y * w,
-                             x, xs);
-        } else {
-          const float diff = lg[(size_t)y * w + x] - rg[(size_t)y * w + xs];
-          c = squared ? diff * diff : fabsf(diff);
-        }
-      }
-      C[e] = c;
-    }
-    __syncthreads();
-    // (2) vertical box sums for the BH output rows
-    for (int e = tid; e < BH * QC; e += NT) {
-      const int k = e / QC, q = e - (e / QC) * QC;
-      V[e] = box_ordered(&C[(k + r) * QC + q], QC, win);
-    }
-    __syncthreads();
+    // (1) masked cost, (2) vertical box sums (common.cuh)
+    cost_front_vertical<BH, NT>(C, V, lg, rg, lc, rc, nplanes, h, w, x0, y0, QC, d,
+                                win, squared, g_row0, g_h);
     // (3) horizontal box sums
     for (int e = tid; e < BH * E; e += NT) {
       const int k = e / E, x = e - (e / E) * E;
@@ -105,24 +85,10 @@ __global__ void __launch_bounds__(NT) fused_dense_kernel(
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       const int kk = tid / BX + j * (NT / BX);
-      const float a = A[kk * E + t];
-      const bool upd = a < best[j];
-      const bool is_next = !upd && bestd[j] == d - 1;
-      if (upd) { cm1[j] = prev[j]; cb[j] = a; }
-      if (is_next) cp1[j] = a;
-      if (use_uniq) {
-        // second best outside the +-1 zone: restart from min over [0, d-2]
-        // on a new best, else accumulate costs with d > bestd + 1
-        const bool far = !upd && d > bestd[j] + 1;
-        if (upd) second[j] = runlag2[j];
-        if (far) second[j] = fminf(second[j], a);
-        runlag2[j] = fminf(runlag2[j], prev[j] + (d < 1 ? kBig : 0.f));
-      }
-      if (upd) { best[j] = a; bestd[j] = d; }
+      st[j].update(A[kk * E + t], d, use_uniq);
       // right view: costR(x, d) = costL(x + d, d)
       const float ar = (x0 + t + d <= w - 1) ? A[kk * E + t + d] : kBig;
       if (ar < bestr[j]) { bestr[j] = ar; bestrd[j] = d; }
-      prev[j] = a;
     }
   }
 
@@ -131,16 +97,11 @@ __global__ void __launch_bounds__(NT) fused_dense_kernel(
     const int y = y0 + tid / BX + j * (NT / BX);
     const int x = x0 + t;
     if (y >= h || x >= w) continue;
-    const float denom = cm1[j] - 2.0f * cb[j] + cp1[j];
-    float delta = fabsf(denom) > 1e-6f ? (cm1[j] - cp1[j]) / (2.0f * denom) : 0.f;
-    delta = fminf(fmaxf(delta, -0.5f), 0.5f);
-    const bool interior = bestd[j] >= 1 && bestd[j] <= D - 2;
-    const float bd = (float)bestd[j];
     const size_t o = (size_t)y * w + x;
-    disp[o] = interior ? bd + delta : bd;
+    disp[o] = st[j].disp(D);
     dispr[o] = (float)bestrd[j];
-    cbest[o] = cb[j];
-    valid[o] = (!use_uniq || cb[j] * uniq1p <= second[j]) ? 1.f : 0.f;
+    cbest[o] = st[j].cb;
+    valid[o] = st[j].valid(use_uniq, uniq1p);
   }
 }
 

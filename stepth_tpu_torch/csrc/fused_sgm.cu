@@ -1,0 +1,439 @@
+// K6-K9 — the semi-global matching pipeline.
+//
+// Replaces the four Pallas kernels of stepth_tpu/match/pallas_sgm.py:
+//   K6 `_volume_kernel`    -> sgm_volume_kernel:   box-aggregated cost volume
+//   K7 `_scan_kernel`      -> sgm_scan_kernel:     one SGM direction, acc + L
+//   K8 `_scan_wta_kernel`  -> sgm_scan_wta_kernel: the final up-scan with the
+//                                                  WTA fused in
+//   K9 `_wta_kernel`       -> sgm_wta_kernel:      WTA from a volume
+// Volumes are [D, H, W] (d outermost, as the reference's), f32 or bf16, of
+// the real image size: no padding, and no transposes — a scan indexes
+// either axis directly.
+//
+// Exactness. Every f32 value is formed by the same ops in the same order as
+// the reference: K6 uses K1's cost front (common.cuh); a scan step is
+// min_l = min_d prev, cand = min(prev, min(prev[d-1], prev[d+1]) + p1),
+// cand = min(cand, min_l + p2), L = (c + cand) - min_l (only adds: no FMA
+// can form), out = acc + L rounded once to the volume type; minima are exact
+// in any order. The carry stays f32.
+//
+// Scans as independent chains. A direction with step (dy, dx) is a set of
+// 1-D chains: rows (dy = 0), columns (dx = 0) or diagonals (both +-1), each
+// starting from an all-zero predecessor where it enters the image — the
+// reference's zero-filled carry shift. One warp walks one chain with the D
+// path costs spread over its lanes (lane l holds d = l + 32 j, j < ND): min_l
+// is a butterfly reduction, d +- 1 come by shuffles, d >= D lanes hold BIG.
+// Chain k of a block is warp k % 8; neighbouring chains read neighbouring
+// addresses at the same step, so the strided d-on-lanes reads share sectors
+// in L1. The next step's volume and accumulator values are loaded before the
+// current step's arithmetic. What bounds a scan: the bytes (vol read, acc
+// read and written) at full resolution; the serial chain (H or W dependent
+// steps of ~a dozen shuffles each) at the 135x240 coarse level.
+//
+// K8's right view needs the costs of other columns, which other warps hold:
+// each lane offers agg(x, d) to column u = x - d of a u64 [H, W] buffer by
+// atomicMin of (f32 bits << 32) | d. Path costs are >= +0 when p1, p2 >= 0,
+// so the bits order as the values and the smallest d wins a tie, whatever
+// order the warps run in — the reference's first minimum. A plain read
+// first skips candidates that cannot win (values only decrease, so a stale
+// read is safe). The wrapper decodes the low word.
+
+#include "common.cuh"
+
+using namespace stepth;
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---- K6: the volume ------------------------------------------------------
+
+constexpr int VBH = 8;    // output rows per block
+constexpr int VBX = 128;  // output columns per block
+constexpr int VNT = 256;  // threads per block
+
+template <typename T>
+__global__ void __launch_bounds__(VNT) sgm_volume_kernel(
+    const float* __restrict__ lg, const float* __restrict__ rg,
+    const int* __restrict__ lc, const int* __restrict__ rc, int nplanes,
+    T* __restrict__ vol, int h, int w, int D, int win, int squared, int g_row0,
+    int g_h) {
+  extern __shared__ float smem[];
+  const int r = win / 2;
+  const int QC = VBX + 2 * r;
+  float* C = smem;                     // [VBH + 2r][QC] masked cost
+  float* V = C + (VBH + 2 * r) * QC;   // [VBH][QC] vertical box sums
+  const int x0 = blockIdx.x * VBX;
+  const int y0 = blockIdx.y * VBH;
+  const size_t plane = (size_t)h * w;
+  for (int d = 0; d < D; ++d) {
+    cost_front_vertical<VBH, VNT>(C, V, lg, rg, lc, rc, nplanes, h, w, x0, y0, QC, d,
+                                  win, squared, g_row0, g_h);
+    for (int e = threadIdx.x; e < VBH * VBX; e += VNT) {
+      const int k = e / VBX, q = e - (e / VBX) * VBX;
+      const int y = y0 + k, x = x0 + q;
+      if (y < h && x < w) {
+        vol[d * plane + (size_t)y * w + x] =
+            from_f32<T>(box_ordered(&V[k * QC + q + r], 1, win));
+      }
+    }
+  }
+}
+
+// ---- the scan recurrence, shared by K7 and K8 ----------------------------
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// One step: L from the predecessor path costs `prev` and the costs c.
+template <int ND>
+__device__ __forceinline__ void scan_step(const float (&prev)[ND], const float (&c)[ND],
+                                          float (&L)[ND], int lane, float p1, float p2) {
+  float m = prev[0];
+#pragma unroll
+  for (int j = 1; j < ND; ++j) m = fminf(m, prev[j]);
+  m = warp_min(m);
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    // prev[d - 1]: lane - 1 of the same j, or lane 31 of j - 1; BIG at d = 0
+    const float a = __shfl_up_sync(kFull, prev[j], 1);
+    const float b = __shfl_sync(kFull, j > 0 ? prev[j > 0 ? j - 1 : 0] : kBig, 31);
+    const float up = lane == 0 ? b : a;
+    // prev[d + 1]: lane + 1 of the same j, or lane 0 of j + 1 (BIG past D)
+    const float a2 = __shfl_down_sync(kFull, prev[j], 1);
+    const float b2 = __shfl_sync(kFull, j + 1 < ND ? prev[j + 1 < ND ? j + 1 : 0] : kBig, 0);
+    const float dn = lane == 31 ? b2 : a2;
+    float cand = fminf(prev[j], fminf(up, dn) + p1);
+    cand = fminf(cand, m + p2);
+    L[j] = (c[j] + cand) - m;
+  }
+}
+
+// Chain k of direction (dy, dx) over an h x w image: its first pixel and
+// its length. Rows for dy = 0, columns for dx = 0; for diagonals the chains
+// entering through the entry row come first (w of them), then those entering
+// through the entry column below or above the corner (h - 1).
+__device__ __forceinline__ void chain_start(int k, int dy, int dx, int h, int w, int* y,
+                                            int* x, int* n) {
+  if (dx == 0) {
+    *x = k; *y = dy > 0 ? 0 : h - 1; *n = h;
+  } else if (dy == 0) {
+    *y = k; *x = dx > 0 ? 0 : w - 1; *n = w;
+  } else {
+    if (k < w) {
+      *y = dy > 0 ? 0 : h - 1;
+      *x = k;
+    } else {
+      const int i = k - w + 1;
+      *x = dx > 0 ? 0 : w - 1;
+      *y = dy > 0 ? i : h - 1 - i;
+    }
+    const int ny = dy > 0 ? h - *y : *y + 1;
+    const int nx = dx > 0 ? w - *x : *x + 1;
+    *n = ny < nx ? ny : nx;
+  }
+}
+
+constexpr int SWARPS = 8;  // chains (warps) per block
+
+// ---- K7: one direction ---------------------------------------------------
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
+    const T* __restrict__ vol, const T* acc, T* out, int D, int h, int w, int dy,
+    int dx, float p1, float p2, int nchains) {
+  const int chain = blockIdx.x * SWARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (chain >= nchains) return;  // the whole warp leaves together
+  int y, x, n;
+  chain_start(chain, dy, dx, h, w, &y, &x, &n);
+  const size_t plane = (size_t)h * w;
+  const long step = (long)dy * w + dx;
+  float prev[ND], c[ND], a[ND], L[ND];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    prev[j] = lane + 32 * j < D ? 0.f : kBig;
+    c[j] = 0.f;
+    a[j] = 0.f;
+  }
+  size_t o = (size_t)y * w + x;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int d = lane + 32 * j;
+    if (d < D) {
+      c[j] = to_f32(vol[d * plane + o]);
+      if (acc) a[j] = to_f32(acc[d * plane + o]);
+    }
+  }
+  for (int i = 0; i < n; ++i) {
+    // prefetch the next step's inputs (other pixels than this step's store)
+    float cn[ND], an[ND];
+    const size_t on = o + step;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      cn[j] = 0.f;
+      an[j] = 0.f;
+      if (i + 1 < n && d < D) {
+        cn[j] = to_f32(vol[d * plane + on]);
+        if (acc) an[j] = to_f32(acc[d * plane + on]);
+      }
+    }
+    scan_step<ND>(prev, c, L, lane, p1, p2);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) {
+        out[d * plane + o] = from_f32<T>(acc ? a[j] + L[j] : L[j]);
+        prev[j] = L[j];
+      } else {
+        prev[j] = kBig;
+      }
+      c[j] = cn[j];
+      a[j] = an[j];
+    }
+    o = on;
+  }
+}
+
+// ---- K8: the final up-scan with the WTA fused in -------------------------
+
+template <typename T, int ND>
+__global__ void __launch_bounds__(SWARPS * 32) sgm_scan_wta_kernel(
+    const T* __restrict__ vol, const T* __restrict__ acc, float* __restrict__ disp,
+    float* __restrict__ cbest, float* __restrict__ uok,
+    unsigned long long* __restrict__ right, int D, int h, int w, float p1, float p2,
+    int use_uniq, float uniq1p) {
+  const int x = blockIdx.x * SWARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (x >= w) return;  // the whole warp leaves together
+  const size_t plane = (size_t)h * w;
+  const float inf = __int_as_float(0x7f800000);
+  float prev[ND], c[ND], a[ND], L[ND], agg[ND];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    prev[j] = lane + 32 * j < D ? 0.f : kBig;
+    c[j] = 0.f;
+    a[j] = 0.f;
+  }
+  size_t o = (size_t)(h - 1) * w + x;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int d = lane + 32 * j;
+    if (d < D) {
+      c[j] = to_f32(vol[d * plane + o]);
+      a[j] = to_f32(acc[d * plane + o]);
+    }
+  }
+  for (int y = h - 1; y >= 0; --y) {
+    float cn[ND], an[ND];
+    const size_t on = o - w;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      cn[j] = 0.f;
+      an[j] = 0.f;
+      if (y > 0 && d < D) {
+        cn[j] = to_f32(vol[d * plane + on]);
+        an[j] = to_f32(acc[d * plane + on]);
+      }
+    }
+    scan_step<ND>(prev, c, L, lane, p1, p2);
+    // agg = acc + L in f32 (never rounded to the volume type); d >= D: +inf
+    float bv = inf;
+    int bi = 0;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      agg[j] = d < D ? a[j] + L[j] : inf;
+      prev[j] = d < D ? L[j] : kBig;
+      if (agg[j] < bv) { bv = agg[j]; bi = d; }  // ascending d: first minimum
+    }
+    // first minimum over the warp: the smaller d wins a tie
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    }
+    const int b = bi;
+    // the sequential loop's neighbours: agg[b - 1], agg[b + 1] (used only for
+    // interior winners, where both exist)
+    float cm1 = 0.f, cp1 = kBig;
+    const int dm = b - 1 < 0 ? 0 : b - 1;
+    const int dp = b + 1 < D ? b + 1 : D - 1;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const float vm = __shfl_sync(kFull, agg[j], dm & 31);
+      const float vp = __shfl_sync(kFull, agg[j], dp & 31);
+      if (j == (dm >> 5)) cm1 = vm;
+      if (j == (dp >> 5)) cp1 = vp;
+    }
+    // uniqueness: the best cost outside [b - 1, b + 1] (BIG if none)
+    float second = kBig;
+    if (use_uniq) {
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D && (d < b - 1 || d > b + 1)) second = fminf(second, agg[j]);
+      }
+      second = warp_min(second);
+    }
+    if (lane == 0) {
+      disp[o] = subpixel_disp(cm1, bv, cp1, b, D);
+      cbest[o] = bv;
+      uok[o] = (!use_uniq || bv * uniq1p <= second) ? 1.f : 0.f;
+    }
+    // right view: agg(x, d) is a candidate of column x - d
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D && x - d >= 0) {
+        const unsigned long long key =
+            ((unsigned long long)__float_as_uint(agg[j]) << 32) | (unsigned)d;
+        unsigned long long* dst = right + (size_t)y * w + (x - d);
+        if (key < *dst) atomicMin(dst, key);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      c[j] = cn[j];
+      a[j] = an[j];
+    }
+    o = on;
+  }
+}
+
+// ---- K9: WTA from a volume -----------------------------------------------
+
+constexpr int WNT = 256;  // threads (pixels of one row) per block
+
+template <typename T>
+__global__ void __launch_bounds__(WNT) sgm_wta_kernel(
+    const T* __restrict__ vol, float* __restrict__ disp, float* __restrict__ dispr,
+    float* __restrict__ cbest, float* __restrict__ uok, int D, int h, int w,
+    int use_uniq, float uniq1p) {
+  const int x = blockIdx.x * WNT + threadIdx.x;
+  const int y = blockIdx.y;
+  if (x >= w) return;
+  const size_t plane = (size_t)h * w;
+  const size_t o = (size_t)y * w + x;
+  WtaState st;
+  st.init();
+  float bestr = kBig;
+  int bestrd = 0;
+  for (int d = 0; d < D; ++d) {
+    st.update(to_f32(vol[d * plane + o]), d, use_uniq);
+    // right view: costR(x, d) = cost(x + d, d), BIG past the right edge
+    const float ar = x + d <= w - 1 ? to_f32(vol[d * plane + o + d]) : kBig;
+    if (ar < bestr) { bestr = ar; bestrd = d; }
+  }
+  disp[o] = st.disp(D);
+  dispr[o] = (float)bestrd;
+  cbest[o] = st.cb;
+  uok[o] = st.valid(use_uniq, uniq1p);
+}
+
+// ND = ceil(D / 32) is a template argument (registers, unrolled shuffles)
+template <template <typename, int> class F, typename T, typename... Args>
+int dispatch_nd(int D, Args... args) {
+  switch ((D + 31) / 32) {
+    case 1: return F<T, 1>::run(args...);
+    case 2: return F<T, 2>::run(args...);
+    case 3: return F<T, 3>::run(args...);
+    case 4: return F<T, 4>::run(args...);
+    case 5: return F<T, 5>::run(args...);
+    case 6: return F<T, 6>::run(args...);
+    case 7: return F<T, 7>::run(args...);
+    case 8: return F<T, 8>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, int ND>
+struct ScanLaunch {
+  static int run(const void* vol, const void* acc, void* out, int D, int h, int w, int dy,
+                 int dx, float p1, float p2, void* stream) {
+    const int nchains = dx == 0 ? w : dy == 0 ? h : w + h - 1;
+    auto kern = sgm_scan_kernel<T, ND>;
+    STEPTH_LAUNCH(kern, (nchains + SWARPS - 1) / SWARPS, SWARPS * 32, 0, stream,
+                  (const T*)vol, (const T*)acc, (T*)out, D, h, w, dy, dx, p1, p2, nchains);
+  }
+};
+
+template <typename T, int ND>
+struct ScanWtaLaunch {
+  static int run(const void* vol, const void* acc, float* disp, float* cbest, float* uok,
+                 unsigned long long* right, int D, int h, int w, float p1, float p2,
+                 int use_uniq, float uniq1p, void* stream) {
+    auto kern = sgm_scan_wta_kernel<T, ND>;
+    STEPTH_LAUNCH(kern, (w + SWARPS - 1) / SWARPS, SWARPS * 32, 0, stream,
+                  (const T*)vol, (const T*)acc, disp, cbest, uok, right, D, h, w, p1, p2,
+                  use_uniq, uniq1p);
+  }
+};
+
+}  // namespace
+
+// bf16 != 0 selects __nv_bfloat16 volumes, else f32.
+
+extern "C" int stepth_sgm_volume(const float* lg, const float* rg, const int* lc,
+                                 const int* rc, int nplanes, void* vol, int bf16, int h,
+                                 int w, int D, int win, int squared, int g_row0, int g_h,
+                                 void* stream) {
+  const int r = win / 2;
+  const int QC = VBX + 2 * r;
+  const size_t smem = sizeof(float) * ((size_t)(VBH + 2 * r) * QC + VBH * QC);
+  const dim3 grid((w + VBX - 1) / VBX, (h + VBH - 1) / VBH);
+  if (bf16) {
+    auto kern = sgm_volume_kernel<__nv_bfloat16>;
+    STEPTH_LAUNCH(kern, grid, VNT, smem, stream, lg, rg, lc, rc, nplanes,
+                  (__nv_bfloat16*)vol, h, w, D, win, squared, g_row0, g_h);
+  }
+  auto kern = sgm_volume_kernel<float>;
+  STEPTH_LAUNCH(kern, grid, VNT, smem, stream, lg, rg, lc, rc, nplanes, (float*)vol, h, w,
+                D, win, squared, g_row0, g_h);
+}
+
+// acc == NULL: the first direction (out = L); otherwise out = acc + L, and
+// out may be acc itself (in place).
+extern "C" int stepth_sgm_scan(const void* vol, const void* acc, void* out, int bf16, int D,
+                               int h, int w, int dy, int dx, float p1, float p2,
+                               void* stream) {
+  if (bf16) {
+    return dispatch_nd<ScanLaunch, __nv_bfloat16>(D, vol, acc, out, D, h, w, dy, dx, p1,
+                                                   p2, stream);
+  }
+  return dispatch_nd<ScanLaunch, float>(D, vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+}
+
+// `right` must hold all ones (u64 max) on entry.
+extern "C" int stepth_sgm_scan_wta(const void* vol, const void* acc, int bf16, float* disp,
+                                   float* cbest, float* uok, unsigned long long* right,
+                                   int D, int h, int w, float p1, float p2, int use_uniq,
+                                   float uniq1p, void* stream) {
+  if (bf16) {
+    return dispatch_nd<ScanWtaLaunch, __nv_bfloat16>(D, vol, acc, disp, cbest, uok, right,
+                                                      D, h, w, p1, p2, use_uniq, uniq1p,
+                                                      stream);
+  }
+  return dispatch_nd<ScanWtaLaunch, float>(D, vol, acc, disp, cbest, uok, right, D, h, w,
+                                           p1, p2, use_uniq, uniq1p, stream);
+}
+
+extern "C" int stepth_sgm_wta(const void* vol, int bf16, float* disp, float* dispr,
+                              float* cbest, float* uok, int D, int h, int w, int use_uniq,
+                              float uniq1p, void* stream) {
+  const dim3 grid((w + WNT - 1) / WNT, h);
+  if (bf16) {
+    auto kern = sgm_wta_kernel<__nv_bfloat16>;
+    STEPTH_LAUNCH(kern, grid, WNT, 0, stream, (const __nv_bfloat16*)vol, disp, dispr, cbest,
+                  uok, D, h, w, use_uniq, uniq1p);
+  }
+  auto kern = sgm_wta_kernel<float>;
+  STEPTH_LAUNCH(kern, grid, WNT, 0, stream, (const float*)vol, disp, dispr, cbest, uok, D, h,
+                w, use_uniq, uniq1p);
+}

@@ -1,6 +1,7 @@
 """Build, load and launch the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links the objects into one shared
 library with a plain C interface, loaded through ``ctypes``. The build runs
 at the first CUDA launch, never at import (importing the package needs no
 ``nvcc``), into ``stepth_tpu_torch/_build/<hash>/``, keyed by a hash of the
@@ -32,7 +33,7 @@ BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libstepth_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -64,17 +65,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; raise on the first that fails. Returns
+    their output, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]  # waits for every process
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _build(out: pathlib.Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    log = proc.stdout + proc.stderr
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    objs, compiles = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        objs.append(str(obj))
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    log = _run_all(compiles)
+    tmp = out.with_name(f"{out.name}.{tag}")
+    log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]])
+    for obj in objs:
+        os.remove(obj)
     (out.parent / "build.log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return log

@@ -74,6 +74,96 @@ def _lr_valid(valid, disp, disp_r, cfg: MatchConfig, lr_fn):
     return valid * ok.to(torch.float32)
 
 
+def box_cost(lg, rg, planes, cfg: MatchConfig, d: int, row_ok) -> torch.Tensor:
+    """The cost front of K1 and K6 for one disparity ``d``: the SAD/SSD cost
+    against the right image at ``x − d`` (column 0 where ``x − d < 0``), or
+    the census Hamming distance of ``planes = (lc, rc)`` there, zeroed on
+    rows outside ``row_ok`` [H, 1], then the zero-padded ``window``² box sum
+    in the kernels' order. Returns f32[H, W]."""
+    w = lg.shape[1]
+    r = cfg.window // 2
+    xs = (torch.arange(w, device=lg.device) - d).clamp(min=0)
+    if cfg.cost == "census":
+        lc, rc = planes
+        cost = dense.popcount32(lc ^ rc[:, :, xs]).sum(0).to(torch.float32)
+    else:
+        diff = lg - rg[:, xs]
+        cost = diff * diff if cfg.cost == "ssd" else diff.abs()
+    cost = torch.where(row_ok, cost, 0.0)
+    padded = torch.nn.functional.pad(cost, (r, r, r, r))
+    return box_sum_ordered(box_sum_ordered(padded, cfg.window, 0), cfg.window, 1)
+
+
+def cost_inputs(lg, rg, cfg: MatchConfig, g_row0: int = 0, g_h: Optional[int] = None):
+    """What :func:`box_cost` reads besides the images: the census planes
+    (``None`` for SAD/SSD) and the in-image rows [H, 1] of an input that
+    starts at global row ``g_row0`` of an image ``g_h`` rows tall."""
+    h = lg.shape[0]
+    gr = g_row0 + torch.arange(h, device=lg.device)
+    row_ok = ((gr >= 0) & (gr < (h if g_h is None else g_h)))[:, None]
+    planes = dense.census_pair(lg, rg, cfg.census_window) if cfg.cost == "census" else None
+    return planes, row_ok
+
+
+class WtaState:
+    """The running first-minimum WTA over ascending ``d`` of f32[H, W] cost
+    planes, shared by the plain versions of K1, K8 and K9 (the kernels'
+    ``WtaState`` in ``csrc/common.cuh``): strict ``<`` so the first minimum
+    wins, its neighbours for the parabolic subpixel, the best cost outside
+    its ±1 zone for ``uniqueness``, and the right view
+    ``costR(x, d) = cost(x + d, d)``."""
+
+    def __init__(self, shape, device, uniqueness: Optional[float]):
+        def full(v, dtype=torch.float32):
+            return torch.full(shape, v, dtype=dtype, device=device)
+
+        self.uniqueness = uniqueness
+        self.best, self.cb, self.cp1, self.bestr = full(_BIG), full(_BIG), full(_BIG), full(_BIG)
+        self.cm1, self.prev = full(0.0), full(0.0)
+        self.runlag2, self.second = full(_BIG), full(_BIG)
+        self.bestd = self.bestrd = full(0, torch.int32)
+        self.w = shape[1]
+
+    def update(self, agg: torch.Tensor, d: int) -> None:
+        upd = agg < self.best
+        is_next = ~upd & (self.bestd == d - 1)
+        self.cm1 = torch.where(upd, self.prev, self.cm1)
+        self.cb = torch.where(upd, agg, self.cb)
+        self.cp1 = torch.where(is_next, agg, self.cp1)
+        if self.uniqueness is not None:
+            # second best outside the ±1 zone: restart from min over [0, d−2]
+            # on a new best, else accumulate costs with d > bestd + 1
+            far = ~upd & (d > self.bestd + 1)
+            self.second = torch.where(upd, self.runlag2, self.second)
+            self.second = torch.where(far, torch.minimum(self.second, agg), self.second)
+            self.runlag2 = torch.minimum(self.runlag2, self.prev + (_BIG if d < 1 else 0.0))
+        self.best = torch.where(upd, agg, self.best)
+        self.bestd = torch.where(upd, d, self.bestd)
+        self.prev = agg
+
+        aggr = torch.full_like(agg, _BIG)  # right view: costR(x, d) = cost(x + d, d)
+        if d < self.w:
+            aggr[:, : self.w - d] = agg[:, d:]
+        updr = aggr < self.bestr
+        self.bestr = torch.where(updr, aggr, self.bestr)
+        self.bestrd = torch.where(updr, d, self.bestrd)
+
+    def result(self, D: int):
+        """``(disp, disp_r, cbest, uok)``, all f32[H, W]; ``uok`` is the
+        uniqueness test as 1.0/0.0 (all ones without ``uniqueness``)."""
+        denom = self.cm1 - 2.0 * self.cb + self.cp1
+        delta = torch.where(denom.abs() > 1e-6, (self.cm1 - self.cp1) / (2.0 * denom), 0.0)
+        delta = delta.clamp(-0.5, 0.5)
+        interior = (self.bestd >= 1) & (self.bestd <= D - 2)
+        bd = self.bestd.to(torch.float32)
+        disp = torch.where(interior, bd + delta, bd)
+        if self.uniqueness is None:
+            uok = torch.ones_like(disp)
+        else:
+            uok = (self.cb * (1.0 + self.uniqueness) <= self.second).to(torch.float32)
+        return disp, self.bestrd.to(torch.float32), self.cb, uok
+
+
 def raw_match_plain(
     lg: torch.Tensor,
     rg: torch.Tensor,
@@ -89,71 +179,11 @@ def raw_match_plain(
     row shard (rows outside ``[0, g_h)`` contribute no cost). ``tile_rows``
     is kept for signature parity; the output does not depend on it."""
     _check_cfg(cfg)
-    h, w = lg.shape
-    D, win = cfg.num_disparities, cfg.window
-    r = win // 2
-    if g_h is None:
-        g_h = h
-    dev = lg.device
-    gr = g_row0 + torch.arange(h, device=dev)
-    row_ok = ((gr >= 0) & (gr < g_h))[:, None]
-    x = torch.arange(w, device=dev)
-    if cfg.cost == "census":
-        lc, rc = dense.census_pair(lg, rg, cfg.census_window)
-
-    def full(v):
-        return torch.full((h, w), v, dtype=torch.float32, device=dev)
-
-    izero = torch.zeros((h, w), dtype=torch.int32, device=dev)
-    best, cb, cp1, bestr = full(_BIG), full(_BIG), full(_BIG), full(_BIG)
-    cm1, prev = full(0.0), full(0.0)
-    runlag2, second = full(_BIG), full(_BIG)
-    bestd, bestrd = izero, izero
-    for d in range(D):
-        xs = (x - d).clamp(min=0)
-        if cfg.cost == "census":
-            cost = dense.popcount32(lc ^ rc[:, :, xs]).sum(0).to(torch.float32)
-        else:
-            diff = lg - rg[:, xs]
-            cost = diff * diff if cfg.cost == "ssd" else diff.abs()
-        cost = torch.where(row_ok, cost, 0.0)
-        padded = torch.nn.functional.pad(cost, (r, r, r, r))
-        agg = box_sum_ordered(box_sum_ordered(padded, win, 0), win, 1)
-
-        upd = agg < best
-        is_next = ~upd & (bestd == d - 1)
-        cm1 = torch.where(upd, prev, cm1)
-        cb = torch.where(upd, agg, cb)
-        cp1 = torch.where(is_next, agg, cp1)
-        if cfg.uniqueness is not None:
-            # second best outside the ±1 zone: restart from min over [0, d−2]
-            # on a new best, else accumulate costs with d > bestd + 1
-            far = ~upd & (d > bestd + 1)
-            second = torch.where(upd, runlag2, second)
-            second = torch.where(far, torch.minimum(second, agg), second)
-            runlag2 = torch.minimum(runlag2, prev + (_BIG if d < 1 else 0.0))
-        best = torch.where(upd, agg, best)
-        bestd = torch.where(upd, d, bestd)
-
-        aggr = full(_BIG)  # right view: costR(x, d) = costL(x + d, d)
-        if d < w:
-            aggr[:, : w - d] = agg[:, d:]
-        updr = aggr < bestr
-        bestr = torch.where(updr, aggr, bestr)
-        bestrd = torch.where(updr, d, bestrd)
-        prev = agg
-
-    denom = cm1 - 2.0 * cb + cp1
-    delta = torch.where(denom.abs() > 1e-6, (cm1 - cp1) / (2.0 * denom), 0.0)
-    delta = delta.clamp(-0.5, 0.5)
-    interior = (bestd >= 1) & (bestd <= D - 2)
-    bd = bestd.to(torch.float32)
-    disp = torch.where(interior, bd + delta, bd)
-    if cfg.uniqueness is None:
-        valid = full(1.0)
-    else:
-        valid = (cb * (1.0 + cfg.uniqueness) <= second).to(torch.float32)
-    disp_r = bestrd.to(torch.float32)
+    planes, row_ok = cost_inputs(lg, rg, cfg, g_row0, g_h)
+    wta = WtaState(lg.shape, lg.device, cfg.uniqueness)
+    for d in range(cfg.num_disparities):
+        wta.update(box_cost(lg, rg, planes, cfg, d, row_ok), d)
+    disp, disp_r, cb, valid = wta.result(cfg.num_disparities)
     valid = _lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_plain)
     return disp, disp_r, cb, valid
 

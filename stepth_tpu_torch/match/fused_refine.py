@@ -29,8 +29,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from stepth_tpu_torch import kernels
-from stepth_tpu_torch.config import MatchConfig, PyramidConfig
-from stepth_tpu_torch.match import dense, fused_dense, fused_post, pyramid
+from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
+from stepth_tpu_torch.match import dense, fused_dense, fused_post, fused_sgm, pyramid
 
 _BIG = 1e30
 _TW = 128  # plan tile width (part of the output contract)
@@ -381,15 +381,17 @@ class _Path(NamedTuple):
     versions."""
 
     match: Callable
+    sgm: Callable
     refine: Callable
     lr: Callable
     fill: Callable
     median: Callable
 
 
-FUSED = _Path(fused_dense.raw_match, refine_level, fused_post.lr_consistency_fused,
-              fused_post.fill_invalid_fused, fused_post.median3_fused)
-PLAIN = _Path(fused_dense.raw_match_plain, refine_level_plain,
+FUSED = _Path(fused_dense.raw_match, fused_sgm.match_pair_sgm_fused, refine_level,
+              fused_post.lr_consistency_fused, fused_post.fill_invalid_fused,
+              fused_post.median3_fused)
+PLAIN = _Path(fused_dense.raw_match_plain, fused_sgm.match_pair_sgm_plain, refine_level_plain,
               fused_post.lr_consistency_plain, fused_post.fill_invalid_plain,
               fused_post.median3_plain)
 
@@ -408,10 +410,9 @@ def _post(path: _Path, disp, disp_r, cfg: MatchConfig, max_base: int, lr_check: 
 
 
 def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
-                        coarse_backend, device) -> dense.MatchResult:
-    if coarse_backend == "sgm":
-        raise NotImplementedError("coarse_backend='sgm': ROADMAP Queue 1 item 7 (K6-K9)")
-    if coarse_backend != "wta":
+                        coarse_backend, device, sgm: Optional[SGMConfig] = None
+                        ) -> dense.MatchResult:
+    if coarse_backend not in ("wta", "sgm"):
         raise ValueError(f"coarse_backend must be 'wta' or 'sgm', got {coarse_backend!r}")
     if lr_check and pyr.levels == 1:
         raise ValueError("lr_check needs at least one refine level")
@@ -429,7 +430,11 @@ def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
         subpixel=cfg.subpixel,
         lr_threshold=None,
     )
-    disp = path.match(lefts[-1], rights[-1], coarse_cfg, tile_rows=min(tile_rows, 16))[0]
+    if coarse_backend == "wta":
+        disp = path.match(lefts[-1], rights[-1], coarse_cfg, tile_rows=min(tile_rows, 16))[0]
+    else:  # the whole SGM matcher, epilogue included
+        disp = path.sgm(lefts[-1], rights[-1], coarse_cfg, SGMConfig() if sgm is None else sgm,
+                        tile_rows=min(tile_rows, 16)).disparity
     max_base = pyr.coarsest_disparities
     disp_r = None
     for lvl in range(pyr.levels - 2, -1, -1):
@@ -456,17 +461,20 @@ def match_hierarchical_fused(
     lr_check: bool = False,
     coarse_backend: str = "wta",
     device=None,
+    sgm: Optional[SGMConfig] = None,
 ) -> dense.MatchResult:
     """Coarse-to-fine matching through the kernels (twin of
-    ``match_hierarchical_pallas`` with ``coarse_backend="wta"``): grayscale,
-    ``levels − 1`` downsamples, K1 at the coarsest level, K2 at every finer
+    ``match_hierarchical_pallas``): grayscale, ``levels − 1`` downsamples,
+    at the coarsest level K1 (``coarse_backend="wta"``) or the whole SGM
+    matcher ``fused_sgm.match_pair_sgm_fused`` with ``sgm`` (default
+    ``SGMConfig()``; ``"sgm"``: K6, K7, K8 or K9, K5, K3), K2 at every finer
     level (``max_base`` doubling from ``coarsest_disparities``; level 0 uses
     ``final_radius``/``final_windows``, and with ``lr_check`` also returns
     the right view), then with ``lr_check`` K4 (``D = coarsest << (levels −
     1)``) and K5, and K3. ``left``/``right``: gray [H, W] or RGB [H, W, 3]
     tensors, or arrays with an explicit ``device``."""
     return _match_hierarchical(FUSED, left, right, cfg, pyr, tile_rows, lr_check,
-                               coarse_backend, device)
+                               coarse_backend, device, sgm)
 
 
 def match_hierarchical_plain(
@@ -478,11 +486,12 @@ def match_hierarchical_plain(
     lr_check: bool = False,
     coarse_backend: str = "wta",
     device=None,
+    sgm: Optional[SGMConfig] = None,
 ) -> dense.MatchResult:
     """The same pipeline through the kernels' plain versions, on any device:
     the reference the kernel path is held to on the card."""
     return _match_hierarchical(PLAIN, left, right, cfg, pyr, tile_rows, lr_check,
-                               coarse_backend, device)
+                               coarse_backend, device, sgm)
 
 
 def seeded_frame(path: _Path, left, right, prior, cfg: MatchConfig, pyr: PyramidConfig,
@@ -501,7 +510,7 @@ def seeded_frame(path: _Path, left, right, prior, cfg: MatchConfig, pyr: Pyramid
 
 
 def _match_temporal(path: _Path, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
-                    lr_check, coarse_backend, device) -> dense.MatchResult:
+                    lr_check, coarse_backend, device, sgm=None) -> dense.MatchResult:
     if lefts.ndim not in (3, 4):
         raise ValueError(f"expected [T,H,W] or [T,H,W,C], got {tuple(lefts.shape)}")
     if keyframe_interval < 1:
@@ -511,7 +520,7 @@ def _match_temporal(path: _Path, lefts, rights, cfg, pyr, keyframe_interval, til
     for i in range(lefts.shape[0]):
         if i % keyframe_interval == 0:
             res = _match_hierarchical(path, lefts[i], rights[i], cfg, pyr, tile_rows,
-                                      lr_check, coarse_backend, device)
+                                      lr_check, coarse_backend, device, sgm)
         else:
             res = seeded_frame(path, lefts[i], rights[i], prev, cfg, pyr, tile_rows,
                                lr_check, device)
@@ -530,17 +539,19 @@ def match_temporal_fused(
     lr_check: bool = False,
     coarse_backend: str = "wta",
     device=None,
+    sgm: Optional[SGMConfig] = None,
 ) -> dense.MatchResult:
     """Video stereo with temporal seeding (twin of ``match_temporal_pallas``)
     over stacked frames ``[T, H, W]`` (or ``[T, H, W, 3]``): frame 0 and
-    every ``keyframe_interval``-th frame run :func:`match_hierarchical_fused`;
+    every ``keyframe_interval``-th frame run :func:`match_hierarchical_fused`
+    (``coarse_backend`` and ``sgm`` as there);
     every other frame runs only level-0 K2 (with its right view under
     ``lr_check``) seeded by the previous frame's output disparity, with
     ``max_base = coarsest << (levels − 1)``, then the same epilogue. The
     reference's ``lax.scan``/``lax.cond`` are a Python loop here. Returns a
     stacked :class:`MatchResult`."""
     return _match_temporal(FUSED, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
-                           lr_check, coarse_backend, device)
+                           lr_check, coarse_backend, device, sgm)
 
 
 def match_temporal_plain(
@@ -553,7 +564,8 @@ def match_temporal_plain(
     lr_check: bool = False,
     coarse_backend: str = "wta",
     device=None,
+    sgm: Optional[SGMConfig] = None,
 ) -> dense.MatchResult:
     """The same video loop through the kernels' plain versions."""
     return _match_temporal(PLAIN, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
-                           lr_check, coarse_backend, device)
+                           lr_check, coarse_backend, device, sgm)

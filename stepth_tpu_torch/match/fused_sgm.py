@@ -1,0 +1,363 @@
+"""The semi-global matching pipeline on kernels K6–K9, each with its plain
+version (twin of ``stepth_tpu/match/pallas_sgm.py``, the ``sgm-pallas``
+backend).
+
+- K6 :func:`aggregated_volume`: the box-aggregated cost volume ``[D, H, W]``
+  (f32, or bf16 with ``volume_dtype="bf16"``), K1's cost front per ``d``.
+- K7 :func:`scan_direction`: one SGM direction, ``acc + L`` stored in the
+  volume's type (the carry stays f32). ``axis`` is the scanned volume axis
+  (1: rows top to bottom, 2: columns left to right; ``reverse`` flips it),
+  ``shift`` the lateral step of a diagonal: ``(axis=1, reverse, shift)`` is
+  the reference's ``(reverse, shift)`` on the untransposed volume. The
+  accumulator is updated in place (the reference aliases it too); the
+  volume is never transposed.
+- K8 :func:`scan_wta_direction`: the final ↑y scan with the whole WTA fused
+  in — ``agg = acc + L`` summed in f32 and never stored — returning
+  ``(disp, disp_r, cbest, uok)``. The right view needs other columns' costs:
+  the kernel merges ``(f32 bits << 32) | d`` into a u64 buffer with
+  ``atomicMin`` (path costs are ≥ 0 for ``p1, p2 ≥ 0``, which the wrapper
+  checks), and the wrapper decodes it.
+- K9 :func:`wta_from_volume`: the same WTA from a stored volume, then K4 for
+  the LR check when ``cfg.lr_threshold`` is set (as K1 does: a block cannot
+  see other columns' right view).
+
+:func:`match_pair_sgm_fused` keeps the reference's rule of which path runs:
+with 4 or 8 directions and ``D ≤ 128``, K7 for every direction but the last
+and K8 for ↑y (then K4 with LR); otherwise K7 for every direction and K9.
+In f32 both give the same bits; with bf16 they differ where the reference's
+do (the unfused path rounds the last sum to bf16 before the WTA). Then K5
+and K3. The reference's ``step_block``/``lane_tile`` and ``tile_rows`` only
+retile its TPU grid and cannot change an output: they are accepted and
+ignored here.
+
+Every wrapper runs the plain version for CPU tensors and launches its
+kernel (or raises) for CUDA tensors. The plain versions share their
+arithmetic with the other backends: the cost front and the WTA are
+``fused_dense.box_cost``/``WtaState`` (K1's), the recurrence is
+``sgm.dir_step``. With integer-valued gray inputs every cost and path sum is
+an exact f32 integer, so the kernels, the plain versions and the reference
+agree bit for bit in any order of adds; on float textures they add in the
+same order as well.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from stepth_tpu_torch import kernels
+from stepth_tpu_torch.config import MatchConfig, SGMConfig
+from stepth_tpu_torch.match import dense, fused_dense, fused_post
+from stepth_tpu_torch.match import sgm as sgm_mod
+
+_SRC = "stepth_tpu_torch/csrc/fused_sgm.cu"
+_REF = "stepth_tpu/match/pallas_sgm.py"
+PTR, INT, FLOAT = kernels.PTR, kernels.INT, kernels.FLOAT
+
+K6 = kernels.Kernel("K6 sgm_volume", "stepth_sgm_volume",
+                    [PTR] * 4 + [INT, PTR] + [INT] * 8, source=_SRC, replaces=f"{_REF}:71")
+K7 = kernels.Kernel("K7 sgm_scan", "stepth_sgm_scan",
+                    [PTR] * 3 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:262")
+K8 = kernels.Kernel("K8 sgm_scan_wta", "stepth_sgm_scan_wta",
+                    [PTR, PTR, INT] + [PTR] * 4 + [INT] * 3 + [FLOAT] * 2 + [INT, FLOAT],
+                    source=_SRC, replaces=f"{_REF}:748")
+K9 = kernels.Kernel("K9 sgm_wta", "stepth_sgm_wta",
+                    [PTR, INT] + [PTR] * 4 + [INT] * 4 + [FLOAT],
+                    source=_SRC, replaces=f"{_REF}:581")
+
+_VOLUME_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+_MAX_D = 256  # eight path costs per lane of a scan warp
+_FUSED_MAX_D = 128  # the reference's fused-WTA limit, kept so bf16 outputs agree
+
+# (axis, reverse, shift) in the reference's order of summation
+_HORIZONTAL = ((2, False, 0), (2, True, 0))  # →x, ←x
+_DIAGONALS = ((1, False, 1), (1, False, -1), (1, True, 1), (1, True, -1))  # ↘ ↙ ↗ ↖
+_VERTICAL = ((1, False, 0), (1, True, 0))  # ↓y, ↑y (last)
+
+
+def directions(n: int):
+    """The ``(axis, reverse, shift)`` of each direction of an ``n``-direction
+    aggregation, in the order the sums are taken."""
+    if n not in (2, 4, 8):
+        raise ValueError(f"directions must be 2, 4 or 8, got {n}")
+    return _HORIZONTAL + (_DIAGONALS if n == 8 else ()) + (_VERTICAL if n >= 4 else ())
+
+
+def volume_dtype(sgm: SGMConfig) -> torch.dtype:
+    if sgm.volume_dtype not in _VOLUME_DTYPES:
+        raise ValueError(f"volume_dtype must be 'f32' or 'bf16', got {sgm.volume_dtype!r}")
+    return _VOLUME_DTYPES[sgm.volume_dtype]
+
+
+def _check_volume(name: str, vol: torch.Tensor) -> None:
+    if vol.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: expected f32 or bf16, got {vol.dtype}")
+    kernels.check_cuda_tensor(name, vol, vol.dtype, 3)
+    if not 1 <= vol.shape[0] <= _MAX_D:
+        raise ValueError(f"{name}: the scan kernels take 1 ≤ D ≤ {_MAX_D}, got {vol.shape[0]}")
+
+
+# ---- K6 ------------------------------------------------------------------
+
+
+def aggregated_volume_plain(lg, rg, cfg: MatchConfig, dtype=torch.float32, g_row0: int = 0,
+                            g_h: Optional[int] = None) -> torch.Tensor:
+    """K6's plain version: K1's cost front per ``d``, stored as ``dtype``
+    [D, H, W]. ``g_row0``/``g_h``: the global row window of a row shard."""
+    fused_dense._check_cfg(cfg)
+    planes, row_ok = fused_dense.cost_inputs(lg, rg, cfg, g_row0, g_h)
+    vol = torch.empty((cfg.num_disparities, *lg.shape), dtype=dtype, device=lg.device)
+    for d in range(cfg.num_disparities):
+        vol[d] = fused_dense.box_cost(lg, rg, planes, cfg, d, row_ok).to(dtype)
+    return vol
+
+
+def aggregated_volume(lg, rg, cfg: MatchConfig, dtype=torch.float32, g_row0: int = 0,
+                      g_h: Optional[int] = None) -> torch.Tensor:
+    """The box-aggregated cost volume ``dtype`` [D, H, W] of gray f32[H, W]
+    images (twin of ``_aggregated_volume`` on the real extent): K6 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if lg.device.type == "cpu":
+        return aggregated_volume_plain(lg, rg, cfg, dtype, g_row0, g_h)
+    fused_dense._check_cfg(cfg)
+    kernels.check_cuda_tensor("volume left", lg, torch.float32, 2)
+    kernels.check_cuda_tensor("volume right", rg, torch.float32, 2)
+    if rg.shape != lg.shape or rg.device != lg.device:
+        raise ValueError(f"left {tuple(lg.shape)} / right {tuple(rg.shape)} differ")
+    if dtype not in (torch.float32, torch.bfloat16) or cfg.num_disparities < 1:
+        raise ValueError(f"volume: need f32/bf16 and D ≥ 1, got {dtype}, {cfg.num_disparities}")
+    h, w = lg.shape
+    vol = torch.empty((cfg.num_disparities, h, w), dtype=dtype, device=lg.device)
+    images = (lg.data_ptr(), rg.data_ptr(), None, None, 0)
+    if cfg.cost == "census":
+        lc, rc = dense.census_pair(lg, rg, cfg.census_window)
+        images = (None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0])
+    K6.launch(lg.device, *images, vol.data_ptr(), int(dtype == torch.bfloat16), h, w,
+              cfg.num_disparities, cfg.window, int(cfg.cost == "ssd"), int(g_row0),
+              h if g_h is None else int(g_h))
+    return vol
+
+
+# ---- K7 ------------------------------------------------------------------
+
+
+def _plain_steps(vol: torch.Tensor, p1: float, p2: float, axis: int, reverse: bool,
+                 shift: int):
+    """The plain scan: ``(s, L [D, T] f32)`` at each position ``s`` along
+    ``axis`` of ``vol`` [D, H, W], in scan order, by ``sgm.dir_step`` on a
+    ``[T, D]`` carry."""
+    n = vol.shape[axis]
+    carry = torch.zeros((vol.shape[3 - axis], vol.shape[0]), dtype=torch.float32,
+                        device=vol.device)
+    for s in (range(n - 1, -1, -1) if reverse else range(n)):
+        c = vol.select(axis, s).to(torch.float32).T
+        carry = sgm_mod.dir_step(carry, c, shift, p1, p2)
+        yield s, carry.T
+
+
+def scan_direction_plain(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
+                         shift: int = 0) -> torch.Tensor:
+    """K7's plain version: ``acc + L`` (``L`` when ``acc`` is None) in
+    ``vol``'s type, written into ``acc`` in place."""
+    _step(axis, reverse, shift)
+    out = torch.empty_like(vol) if acc is None else acc
+    for s, L in _plain_steps(vol, p1, p2, axis, reverse, shift):
+        if acc is not None:
+            L = acc.select(axis, s).to(torch.float32) + L
+        out.select(axis, s).copy_(L.to(vol.dtype))
+    return out
+
+
+def _step(axis: int, reverse: bool, shift: int):
+    """``(dy, dx)`` of a chain step: ±1 along the scanned axis, ``shift``
+    across it."""
+    if axis not in (1, 2) or shift not in (-1, 0, 1):
+        raise ValueError(f"scan: need axis 1 or 2 and shift in -1..1, got {axis}, {shift}")
+    along = -1 if reverse else 1
+    return (along, shift) if axis == 1 else (shift, along)
+
+
+def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
+                   shift: int = 0) -> torch.Tensor:
+    """One SGM direction over ``vol`` [D, H, W] (twin of
+    ``_scan_direction``): returns ``acc + L_dir`` (``L_dir`` when ``acc`` is
+    None), updating ``acc`` in place. K7 on CUDA tensors, the plain version
+    on CPU tensors."""
+    if vol.device.type == "cpu":
+        return scan_direction_plain(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+    dy, dx = _step(axis, reverse, shift)
+    _check_volume("scan volume", vol)
+    if acc is not None:
+        kernels.check_cuda_tensor("scan acc", acc, vol.dtype, 3)
+        if acc.shape != vol.shape or acc.device != vol.device:
+            raise ValueError(f"scan: acc {tuple(acc.shape)} != volume {tuple(vol.shape)}")
+    D, h, w = vol.shape
+    out = torch.empty_like(vol) if acc is None else acc
+    K7.launch(vol.device, vol.data_ptr(), None if acc is None else acc.data_ptr(),
+              out.data_ptr(), int(vol.dtype == torch.bfloat16), D, h, w, dy, dx,
+              float(p1), float(p2))
+    return out
+
+
+def _aggregate(scan_fn, vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
+    acc = None
+    for axis, reverse, shift in directions(sgm.directions):
+        acc = scan_fn(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+    return acc
+
+
+def aggregate_plain(vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
+    """:func:`aggregate_fused` through K7's plain version."""
+    return _aggregate(scan_direction_plain, vol, sgm, p1, p2)
+
+
+def aggregate_fused(vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
+    """All-directions path-cost sum over ``vol`` [D, H, W] in its type (twin
+    of ``aggregate_pallas``): one K7 launch per direction, in the
+    reference's order."""
+    return _aggregate(scan_direction, vol, sgm, p1, p2)
+
+
+# ---- K9 ------------------------------------------------------------------
+
+
+def _wta_plain(vol: torch.Tensor, uniqueness: Optional[float]):
+    wta = fused_dense.WtaState(vol.shape[1:], vol.device, uniqueness)
+    for d in range(vol.shape[0]):
+        wta.update(vol[d].to(torch.float32), d)
+    return wta.result(vol.shape[0])
+
+
+def wta_from_volume_plain(vol: torch.Tensor, cfg: MatchConfig):
+    """K9's plain version: K1's WTA (``fused_dense.WtaState``) over the
+    planes of ``vol`` [D, H, W], then the LR check with
+    ``cfg.lr_threshold``. Returns ``(disp, disp_r, cbest, valid)``, f32[H, W]."""
+    disp, disp_r, cbest, valid = _wta_plain(vol, cfg.uniqueness)
+    valid = fused_dense._lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_plain)
+    return disp, disp_r, cbest, valid
+
+
+def wta_from_volume(vol: torch.Tensor, cfg: MatchConfig):
+    """WTA, subpixel, uniqueness and right view of ``vol`` [D, H, W] (twin
+    of ``_wta_from_volume``): K9, then K4 with ``cfg.lr_threshold``, on
+    CUDA tensors; the plain version on CPU tensors."""
+    if vol.device.type == "cpu":
+        return wta_from_volume_plain(vol, cfg)
+    if vol.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"wta volume: expected f32 or bf16, got {vol.dtype}")
+    kernels.check_cuda_tensor("wta volume", vol, vol.dtype, 3)
+    D, h, w = vol.shape
+    outs = [torch.empty((h, w), dtype=torch.float32, device=vol.device) for _ in range(4)]
+    uniq = cfg.uniqueness
+    K9.launch(vol.device, vol.data_ptr(), int(vol.dtype == torch.bfloat16),
+              *(o.data_ptr() for o in outs), D, h, w, int(uniq is not None),
+              1.0 + (uniq or 0.0))
+    disp, disp_r, cbest, valid = outs
+    valid = fused_dense._lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_fused)
+    return disp, disp_r, cbest, valid
+
+
+# ---- K8 ------------------------------------------------------------------
+
+
+def scan_wta_direction_plain(vol, acc, p1: float, p2: float, cfg: MatchConfig):
+    """K8's plain version: K7's plain ↑y scan, ``acc + L`` summed in f32,
+    then K9's plain WTA without the LR check."""
+    agg = torch.empty(vol.shape, dtype=torch.float32, device=vol.device)
+    for s, L in _plain_steps(vol, p1, p2, 1, True, 0):
+        agg[:, s] = acc[:, s].to(torch.float32) + L
+    return _wta_plain(agg, cfg.uniqueness)
+
+
+def scan_wta_direction(vol, acc, p1: float, p2: float, cfg: MatchConfig):
+    """The final ↑y direction over ``vol`` [D, H, W] onto ``acc`` with the
+    WTA fused in (twin of ``_scan_wta_direction``): returns
+    ``(disp, disp_r, cbest, uok)``, f32[H, W]. K8 (plus a buffer fill and a
+    decode) on CUDA tensors, the plain version on CPU tensors."""
+    if vol.device.type == "cpu":
+        return scan_wta_direction_plain(vol, acc, p1, p2, cfg)
+    _check_volume("scan_wta volume", vol)
+    kernels.check_cuda_tensor("scan_wta acc", acc, vol.dtype, 3)
+    if acc.shape != vol.shape or acc.device != vol.device:
+        raise ValueError(f"scan_wta: acc {tuple(acc.shape)} != volume {tuple(vol.shape)}")
+    if p1 < 0 or p2 < 0:
+        raise ValueError(f"scan_wta: the right view needs p1, p2 ≥ 0, got {p1}, {p2}")
+    D, h, w = vol.shape
+    disp, cbest, uok = (torch.empty((h, w), dtype=torch.float32, device=vol.device)
+                        for _ in range(3))
+    # all ones: the u64 start value atomicMin never keeps
+    right = torch.full((h, w), -1, dtype=torch.int64, device=vol.device)
+    uniq = cfg.uniqueness
+    K8.launch(vol.device, vol.data_ptr(), acc.data_ptr(), int(vol.dtype == torch.bfloat16),
+              disp.data_ptr(), cbest.data_ptr(), uok.data_ptr(), right.data_ptr(), D, h, w,
+              float(p1), float(p2), int(uniq is not None), 1.0 + (uniq or 0.0))
+    disp_r = (right & 0xFFFFFFFF).to(torch.float32)
+    return disp, disp_r, cbest, uok
+
+
+# ---- the pipeline --------------------------------------------------------
+
+
+class _Path(NamedTuple):
+    """The functions the pipeline runs: the kernels' wrappers, or their
+    plain versions."""
+
+    volume: Callable
+    scan: Callable
+    scan_wta: Callable
+    wta: Callable
+    lr: Callable
+    fill: Callable
+    median: Callable
+
+
+FUSED = _Path(aggregated_volume, scan_direction, scan_wta_direction, wta_from_volume,
+              fused_post.lr_consistency_fused, fused_post.fill_invalid_fused,
+              fused_post.median3_fused)
+PLAIN = _Path(aggregated_volume_plain, scan_direction_plain, scan_wta_direction_plain,
+              wta_from_volume_plain, fused_post.lr_consistency_plain,
+              fused_post.fill_invalid_plain, fused_post.median3_plain)
+
+
+def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
+                    device) -> dense.MatchResult:
+    fused_dense._check_cfg(cfg)
+    dirs = directions(sgm.directions)
+    dtype = volume_dtype(sgm)
+    lg = dense.grayscale(left, device)
+    rg = dense.grayscale(right, device)
+    vol = path.volume(lg, rg, cfg, dtype)
+    p1, p2 = sgm_mod.penalties(cfg, sgm)
+    if sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D:
+        acc = None
+        for axis, reverse, shift in dirs[:-1]:
+            acc = path.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+        disp, disp_r, cbest, uok = path.scan_wta(vol, acc, p1, p2, cfg)
+        valid = uok > 0.5
+        if cfg.lr_threshold is not None:
+            valid = valid & path.lr(disp, disp_r, float(cfg.lr_threshold),
+                                    cfg.num_disparities)
+    else:
+        agg = _aggregate(path.scan, vol, sgm, p1, p2)
+        disp, _, cbest, valid_f = path.wta(agg, cfg)
+        valid = valid_f > 0.5
+    disp = path.median(path.fill(disp, valid))
+    return dense.MatchResult(disparity=disp, valid=valid, cost=cbest)
+
+
+def match_pair_sgm_fused(left, right, cfg: MatchConfig = MatchConfig(),
+                         sgm: SGMConfig = SGMConfig(), tile_rows: int = 16,
+                         device=None) -> dense.MatchResult:
+    """The SGM matcher on kernels K6–K9 (twin of ``match_pair_sgm_pallas``,
+    the ``sgm-pallas`` backend); K4, K5 and K3 in the epilogue.
+    ``left``/``right``: gray or RGB tensors, or arrays with a ``device``.
+    ``tile_rows`` is accepted for signature parity and ignored."""
+    return _match_pair_sgm(FUSED, left, right, cfg, sgm, device)
+
+
+def match_pair_sgm_plain(left, right, cfg: MatchConfig = MatchConfig(),
+                         sgm: SGMConfig = SGMConfig(), tile_rows: int = 16,
+                         device=None) -> dense.MatchResult:
+    """The same pipeline through the kernels' plain versions, on any device."""
+    return _match_pair_sgm(PLAIN, left, right, cfg, sgm, device)

@@ -5,9 +5,12 @@ The fields are the reference's, so one configuration drives both packages,
 and the backends keep their names: ``"dense"`` is the plain-torch cost
 volume matcher, ``"pallas"`` the exhaustive matcher on the port's kernels
 (K1, K4, K5, K3), ``"hierarchical-pallas"`` the coarse-to-fine pyramid on
-them (K1, K2, K3, and K4, K5 with ``lr_check``). :meth:`StereoModel.batched`
-and :meth:`StereoModel.video` are Python loops over frames. Every other
-backend names the ROADMAP item that ports it.
+them (K1, K2, K3, and K4, K5 with ``lr_check``), ``"sgm"`` the plain-torch
+semi-global matcher, ``"sgm-pallas"`` the same on kernels K6–K9 (with K4,
+K5, K3), and ``"hierarchical-sgm"`` the pyramid with the SGM matcher at the
+coarsest level. :meth:`StereoModel.batched` and :meth:`StereoModel.video`
+are Python loops over frames. Every other backend names the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -27,9 +30,6 @@ from stepth_tpu_torch.match import dense
 
 _NOT_PORTED = {
     "hierarchical": "ROADMAP Queue 1 item 8 (XLA-only backends)",
-    "hierarchical-sgm": "ROADMAP Queue 1 item 7 (SGM, K6-K9)",
-    "sgm": "ROADMAP Queue 1 item 7 (SGM)",
-    "sgm-pallas": "ROADMAP Queue 1 item 7 (SGM, K6-K9)",
     "parity": "ROADMAP Queue 1 item 9 (parity)",
 }
 
@@ -43,10 +43,10 @@ class StereoModel:
     pyramid: PyramidConfig = PyramidConfig()
     sgm: SGMConfig = SGMConfig()  # sgm / sgm-pallas / hierarchical-sgm only
     precision: Tuple[int, int, int] = DEFAULT_PRECISION  # parity backend only
-    # hierarchical-pallas only: run the final refine level's right view and
-    # mark LR-inconsistent pixels invalid (then fill them from their
-    # scanline neighbours). The other backends take their LR switch from
-    # match.lr_threshold.
+    # hierarchical-pallas / hierarchical-sgm only: run the final refine
+    # level's right view and mark LR-inconsistent pixels invalid (then fill
+    # them from their scanline neighbours). The other backends take their
+    # LR switch from match.lr_threshold.
     lr_check: bool = False
 
     def __call__(self, left, right, device=None) -> dense.MatchResult:
@@ -58,18 +58,30 @@ class StereoModel:
             from stepth_tpu_torch.match import fused_dense
 
             return fused_dense.match_pair_fused(left, right, self.match, device=device)
-        if self.backend == "hierarchical-pallas":
+        if self.backend in ("hierarchical-pallas", "hierarchical-sgm"):
             from stepth_tpu_torch.match import fused_refine
 
             return fused_refine.match_hierarchical_fused(
-                left, right, self.match, self.pyramid,
-                lr_check=self.lr_check, device=device,
+                left, right, self.match, self.pyramid, lr_check=self.lr_check,
+                coarse_backend=self._coarse(), device=device, sgm=self.sgm,
             )
+        if self.backend == "sgm":
+            from stepth_tpu_torch.match import sgm
+
+            return sgm.match_pair_sgm(left, right, self.match, self.sgm, device)
+        if self.backend == "sgm-pallas":
+            from stepth_tpu_torch.match import fused_sgm
+
+            return fused_sgm.match_pair_sgm_fused(left, right, self.match, self.sgm,
+                                                  device=device)
         if self.backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"backend {self.backend!r} is not ported yet: {_NOT_PORTED[self.backend]}"
             )
         raise ValueError(f"unknown backend {self.backend!r}")
+
+    def _coarse(self) -> str:
+        return "sgm" if self.backend == "hierarchical-sgm" else "wta"
 
     def depth_u8(self, left, right, device=None) -> torch.Tensor:
         """Disparity scaled to the reference's u8 depth convention."""
@@ -95,12 +107,9 @@ class StereoModel:
         ``[T, H, W]`` to a stacked :class:`MatchResult`. Non-keyframes skip
         the coarse pyramid and run only the full-resolution refine seeded by
         the previous frame's disparity; every ``keyframe_interval``-th frame
-        re-runs the full pyramid (``fused_refine.match_temporal_fused``)."""
-        if self.backend == "hierarchical-sgm":
-            raise NotImplementedError(
-                f"video() on {self.backend!r}: {_NOT_PORTED[self.backend]}"
-            )
-        if self.backend != "hierarchical-pallas":
+        re-runs the full pyramid (``fused_refine.match_temporal_fused``, with
+        the SGM coarse level on ``hierarchical-sgm``)."""
+        if self.backend not in ("hierarchical-pallas", "hierarchical-sgm"):
             raise NotImplementedError(
                 f"video() needs a hierarchical Pallas backend, got {self.backend!r}"
             )
@@ -110,7 +119,7 @@ class StereoModel:
             return fused_refine.match_temporal_fused(
                 lefts, rights, self.match, self.pyramid,
                 keyframe_interval=keyframe_interval, lr_check=self.lr_check,
-                device=device,
+                coarse_backend=self._coarse(), device=device, sgm=self.sgm,
             )
 
         return run

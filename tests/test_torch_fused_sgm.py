@@ -1,0 +1,161 @@
+"""K6–K9, the SGM kernels: their plain versions vs the Pallas kernels of
+``stepth_tpu/match/pallas_sgm.py`` (interpret mode), and (on a card) each
+CUDA kernel vs its plain version.
+
+Rule: exact equality of every output on the real region. The inputs are
+integer-valued (gray images from ``rng.integers``, integer volumes), so every
+cost, box sum, path cost and sum of directions is an exact f32 integer and
+the order of adds cannot matter; the recurrence, the WTA and the bf16
+roundings are the same ops in the same places. The Pallas kernels work on
+padded volumes; their padding never reaches the real region."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stepth_tpu.config import MatchConfig as RefMatchConfig
+from stepth_tpu.match import pallas_sgm
+from stepth_tpu_torch.config import MatchConfig
+from stepth_tpu_torch.match import fused_sgm
+
+from tests.torch_port import cuda, np_  # noqa: F401 (fixture)
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _int_pair(rng, h=40, w=72, shift=5):
+    left = rng.integers(0, 256, (h, w)).astype(np.float32)
+    return left, np.roll(left, -shift, axis=1)
+
+
+def _equal(want, got):
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np_(b.float() if isinstance(b, torch.Tensor) else b),
+                                      np.asarray(a, np.float32))
+
+
+def _torch(a, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "cost, window, census_window",
+    [("sad", 9, 7), ("ssd", 5, 7), ("census", 5, 5), ("census", 9, 7)],
+)
+def test_volume_plain_matches_pallas(rng, cost, window, census_window, dtype):
+    """K6: the box-aggregated volume [D, H, W], f32 or rounded once to bf16."""
+    left, right = _int_pair(rng)
+    cfg = dict(num_disparities=16, window=window, cost=cost, census_window=census_window)
+    jdt, tdt = DTYPES[dtype]
+    want, _ = pallas_sgm._aggregated_volume(jnp.asarray(left), jnp.asarray(right),
+                                            RefMatchConfig(**cfg), 16, True, dtype=jdt)
+    got = fused_sgm.aggregated_volume(_torch(left), _torch(right), MatchConfig(**cfg), tdt)
+    assert got.shape == (16, 40, 72) and got.dtype == tdt
+    _equal([np.asarray(want[:, :40, :72].astype(jnp.float32))], [got])
+
+
+def test_volume_row_window_matches_pallas(rng):
+    """K6 on a halo-extended row shard: rows outside [0, g_h) cost nothing."""
+    left, right = _int_pair(rng)
+    cfg = dict(num_disparities=8, window=5)
+    want, _ = pallas_sgm._aggregated_volume(jnp.asarray(left), jnp.asarray(right),
+                                            RefMatchConfig(**cfg), 16, True, g_row0=-4, g_h=30)
+    got = fused_sgm.aggregated_volume(_torch(left), _torch(right), MatchConfig(**cfg),
+                                      g_row0=-4, g_h=30)
+    _equal([want[:, :40, :72]], [got])
+
+
+S, T, S_REAL, T_REAL = 48, 256, 41, 247
+
+
+@pytest.mark.parametrize("lr_threshold", [None, 1.0])
+@pytest.mark.parametrize("uniqueness", [None, 0.1])
+def test_wta_plain_matches_pallas(rng, uniqueness, lr_threshold):
+    """K9 (+ K4 for the LR check): all four outputs."""
+    vol = rng.integers(0, 50, (16, S, T)).astype(np.float32)
+    cfg = dict(num_disparities=16, uniqueness=uniqueness, lr_threshold=lr_threshold)
+    want = pallas_sgm._wta_from_volume(jnp.asarray(vol), Wr=T_REAL, cfg=RefMatchConfig(**cfg),
+                                       interpret=True)
+    got = fused_sgm.wta_from_volume(_torch(vol[:, :S_REAL, :T_REAL]), MatchConfig(**cfg))
+    _equal([w[:S_REAL, :T_REAL] for w in want], got)
+    if uniqueness is not None:
+        assert 0 < np_(got[3]).mean() < 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("uniqueness", [None, 0.1])
+def test_scan_wta_plain_matches_pallas(rng, uniqueness, dtype):
+    """K8: the final ↑y scan with the WTA fused in. 300 real columns of 384
+    with ``lane_tile=128``, so the reference relays the right view across
+    two lane-tile boundaries."""
+    vol = rng.integers(0, 50, (16, S, 384)).astype(np.float32)
+    acc = rng.integers(0, 500, (16, S, 384)).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    cfg = dict(num_disparities=16, uniqueness=uniqueness)
+    want = pallas_sgm._scan_wta_direction(
+        jnp.asarray(vol, jdt), jnp.asarray(acc, jdt), S_real=S_REAL, T_real=300, p1=20.0,
+        p2=80.0, cfg=RefMatchConfig(**cfg), interpret=True, lane_tile=128)
+    real = (slice(None), slice(0, S_REAL), slice(0, 300))
+    got = fused_sgm.scan_wta_direction(_torch(vol[real], tdt), _torch(acc[real], tdt), 20.0,
+                                       80.0, MatchConfig(**cfg))
+    _equal([w[:S_REAL, :300] for w in want], got)
+
+
+def test_directions_order_and_checks():
+    assert fused_sgm.directions(4) == ((2, False, 0), (2, True, 0), (1, False, 0),
+                                       (1, True, 0))
+    assert fused_sgm.directions(8)[2:6] == ((1, False, 1), (1, False, -1), (1, True, 1),
+                                            (1, True, -1))
+    with pytest.raises(ValueError, match="directions"):
+        fused_sgm.directions(6)
+    with pytest.raises(ValueError, match="axis"):
+        fused_sgm._step(0, False, 0)
+
+
+# ---- on a card ------------------------------------------------------------
+
+
+def _card_volume(cuda, cfg, dtype, h=70, w=300):
+    rng = np.random.default_rng(5)
+    left, right = _int_pair(rng, h, w, 9)
+    lg, rg = _torch(left).to(cuda), _torch(right).to(cuda)
+    return lg, rg, fused_sgm.aggregated_volume_plain(lg, rg, cfg, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cost, D", [("sad", 24), ("census", 144)])
+def test_kernels_match_plain_on_card(cuda, cost, D, dtype):
+    """K6, K7 in all eight directions, K8 and K9 (+ K4) bit-equal to their
+    plain versions at an unaligned size."""
+    cfg = MatchConfig(num_disparities=D, window=5, cost=cost, census_window=5,
+                      uniqueness=0.1, lr_threshold=1.0)
+    lg, rg, vol = _card_volume(cuda, cfg, dtype)
+    got = fused_sgm.aggregated_volume(lg, rg, cfg, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vol)
+    acc = acc_p = None
+    for axis, reverse, shift in fused_sgm.directions(8)[:-1]:
+        acc = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, axis=axis, reverse=reverse,
+                                       shift=shift)
+        acc_p = fused_sgm.scan_direction_plain(vol, acc_p, 25.0, 100.0, axis=axis,
+                                               reverse=reverse, shift=shift)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, acc_p), (axis, reverse, shift)
+    for want, got in ((fused_sgm.scan_wta_direction_plain(vol, acc_p, 25.0, 100.0, cfg),
+                       fused_sgm.scan_wta_direction(vol, acc_p, 25.0, 100.0, cfg)),
+                      (fused_sgm.wta_from_volume_plain(acc_p, cfg),
+                       fused_sgm.wta_from_volume(acc_p, cfg))):
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_scan_wta_rejects_negative_penalties_on_card(cuda):
+    cfg = MatchConfig(num_disparities=8, window=5)
+    _, _, vol = _card_volume(cuda, cfg, torch.float32, 16, 64)
+    with pytest.raises(ValueError, match="p1, p2"):
+        fused_sgm.scan_wta_direction(vol, vol.clone(), -1.0, 4.0, cfg)

@@ -151,9 +151,7 @@ def test_batched_matches_reference(rng):
     _equal(want, got)
 
 
-@pytest.mark.parametrize(
-    "backend", ["hierarchical", "hierarchical-sgm", "sgm", "sgm-pallas", "parity"],
-)
+@pytest.mark.parametrize("backend", ["hierarchical", "parity"])
 def test_unported_backends_name_their_roadmap_item(backend):
     g = torch.zeros((32, 128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -169,8 +167,6 @@ def test_unknown_backend_and_lr_check_raise():
             PRODUCTION.pyramid, levels=1))(g, g)
     with pytest.raises(ValueError, match="device"):
         MODEL(np.zeros((32, 128)), np.zeros((32, 128)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StereoModel(backend="hierarchical-sgm").video()
     with pytest.raises(NotImplementedError, match="hierarchical"):
         StereoModel(backend="dense").video()
 
