@@ -24,7 +24,13 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       and census) on both scenes and at 1080×1920 (D=64, window 5, SAD);
       K7 in each of the 8 directions, K8 and K9 (2 directions) at
       1080×1920 D=64; K7 and K8 of the coarse level; at 70×300, D=24 and
-      D=144, census window 5, SSD, uniqueness and bf16 volumes.
+      D=144, census window 5, SSD, uniqueness and bf16 volumes;
+   g. K11, the bilinear remap, through the 1080×1920 rectification maps of
+      a calibrated, lens-distorted rig (both views, gray and 3 channels,
+      fill 3.5), a 720×1280 output from the 1080×1920 source, the identity
+      map (output equals input) and a map spiked with NaN, ±inf and
+      far-away entries; beside it, ``grid_sample`` on the same view as a
+      yardstick (``library_ms``; the port never calls it).
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -39,11 +45,22 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    f. ``sgm-pallas``, 4 directions, D=64, window 5, LR (path 3), and its 8-
       and 2-direction branches;
    g. ``video(keyframe_interval=4)`` of the path-2 model on the clip;
+   h. the rig path: a textured plane at Z = 5 seen by the rig of 3g (raw
+      distorted RGB views, the right one at 0.85× brightness) through
+      ``photometric.normalize_brightness_f32``, ``rectify.rectify_pair(...,
+      backend="pallas")`` (K11 once per view), production,
+      ``geometry.disparity_to_depth``, ``depth_to_points`` and
+      ``io.save_ply``, then ``kmeans.depth_split`` and ``depth.slice_mask``
+      on its u8 depth: launch counts, the analytic disparity f·B/Z_rect and
+      depth (medians within 0.5 px and 2%), the PLY's vertex count, the
+      plain path on the same card, and the depth utilities against the same
+      calls on CPU tensors;
 5. times (CUDA events, median of ``REPS`` runs after a warm-up; the plain
    SGM paths at 1080p loop over thousands of scan steps and take
    ``PLAIN_SGM_REPS``) of kernel and plain paths, per kernel and per frame,
    and each kernel's bound: the larger of its bytes over the card's memory
-   rate and its operations over its f32 rate.
+   rate and its operations over its f32 rate; the rig path per frame
+   against production alone on its rectified pair.
 
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
@@ -55,8 +72,10 @@ JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,6 +122,37 @@ def make_clip(h, w, shifts, seed=0):
     return tex[:, :w], [tex[:, s : s + w] for s in shifts]
 
 
+def rot(axis, deg):
+    """Rotation by ``deg`` degrees about the x or y axis."""
+    a = np.deg2rad(deg)
+    c, s = np.cos(a), np.sin(a)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+
+# the calibrated rig of phases 3g and 4h: 1080p pinhole cameras 12 cm apart,
+# the right one turned 2° about y and -0.5° about x, both lenses distorted
+RIG_K = np.array([[1400.0, 0, 959.5], [0, 1400.0, 539.5], [0, 0, 1]], np.float32)
+RIG_R = (rot("y", 2.0) @ rot("x", -0.5)).astype(np.float32)
+RIG_T = np.array([-0.12, 0.002, 0.001], np.float32)
+RIG_DIST1 = (-0.05, 0.01, 0.0005, -0.0003)
+RIG_DIST2 = (-0.04, 0.008, -0.0004, 0.0002)
+RIG_Z = 5.0  # the plane's depth: f·B/Z ≈ 33.6 px
+
+
+def affine_map(h, w, sh, sw, angle, scale, shift, dev):
+    """f32[h, w, 2] sample map into an (sh, sw) source: output pixels rotated
+    by ``angle`` about the centre, scaled and shifted."""
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
+    c, s = float(np.cos(angle)), float(np.sin(angle))
+    u, v = xx - (w - 1) / 2, yy - (h - 1) / 2
+    x = (u * c - v * s) * scale + (sw - 1) / 2 + shift[0]
+    y = (u * s + v * c) * scale + (sh - 1) / 2 + shift[1]
+    return torch.stack([x, y], -1).contiguous()
+
+
 def check_equal(name, ref_disp, ref_valid, got_disp, got_valid, atol=0.05):
     """The reference's "close" rule (valid masks agree on > 99.9% of pixels,
     99.9th percentile of |Δd| over pixels valid in both ≤ atol px), then
@@ -146,22 +196,37 @@ def check_k1(name, want, got):
     return max(errs)
 
 
+def event_ms(fn):
+    """ms of one run of ``fn``, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps=REPS):
     """Median ms of ``fn`` over ``reps`` runs, by CUDA events, after a
     warm-up."""
     for _ in range(2 if reps > 3 else 1):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+
+def cuda_ms_turns(a, b, reps=REPS):
+    """Median ms of ``a`` and of ``b``, timed in turns (a b, b a, a b, ...)
+    after a warm-up: host-bound frames drift between blocks of runs, so two
+    of them are compared run by run."""
+    a(), b()
+    torch.cuda.synchronize()
+    ta, tb = [], []
+    for r in range(reps):
+        for fn, t in ((a, ta), (b, tb))[:: 1 if r % 2 == 0 else -1]:
+            t.append(event_ms(fn))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def main() -> int:
@@ -174,8 +239,13 @@ def main() -> int:
     from stepth_tpu_torch.match import (dense, fused_dense, fused_post, fused_refine,
                                         fused_sgm, pyramid)
     from stepth_tpu_torch.match.sgm import penalties
+    from stepth_tpu_torch.core import io
+    from stepth_tpu_torch.fusion import geometry
     from stepth_tpu_torch.models.stereo import StereoModel, flagship
+    from stepth_tpu_torch.ops import depth as depth_ops
+    from stepth_tpu_torch.ops import fused_remap, kmeans, photometric, rectify
     from stepth_tpu_torch.utils import scenes
+    from stepth_tpu_torch.utils.rig import plane_rig
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,8 +273,9 @@ def main() -> int:
 
     KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
                "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5,
-               "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9}
-    NO_SGM = {"K6": 0, "K7": 0, "K8": 0, "K9": 0}
+               "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9,
+               "K11": fused_remap.K11}
+    NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K11": 0}  # off the WTA paths
     errs = {n: 0.0 for n in KERNELS}
     times = {}
 
@@ -558,6 +629,72 @@ def main() -> int:
         k_ms, p_ms = times[f"{name} census 135x240 D=16"] = (cuda_ms(k_fn), cuda_ms(p_fn))
         print(f"  {name} census 135x240 D=16: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
+    # 3g. K11 against its plain version: the rig's 1080p rectification maps
+    # (both views, gray and 3 channels, fill 3.5), a 720x1280 output from the
+    # 1080x1920 source, the identity map, and a map spiked with NaN, +-inf,
+    # +-1e6, the last row and column exactly and a value just past the edge
+    print("== K11 (bilinear remap) vs its plain version on the card")
+    rig_maps = rectify.rectify_maps(RIG_K, RIG_K, RIG_R, RIG_T, (H, W), dist1=RIG_DIST1,
+                                    dist2=RIG_DIST2, device=dev)
+    gray = torch.rand((H, W), generator=gen, device=dev) * 255
+    color = torch.rand((H, W, 3), generator=gen, device=dev) * 255
+    wild = rig_maps.map_left.clone()
+    flat = wild.view(-1, 2)
+    spikes = torch.randperm(H * W, generator=gen, device=dev)[: 8 * 4096].view(8, -1)
+    for i, (col, val) in enumerate(((0, float("nan")), (1, float("nan")), (0, float("inf")),
+                                    (1, float("-inf")), (0, 1e6), (1, -1e6))):
+        flat[spikes[i], col] = val
+    flat[spikes[6]] = torch.tensor([W - 1.0, H - 1.0], device=dev)  # both +1 taps clamp
+    flat[spikes[7], 0] = float(np.nextafter(np.float32(W - 1), np.float32(W)))
+    ident = affine_map(H, W, H, W, 0.0, 1.0, (0.0, 0.0), dev)
+    for name, img, m, fill in (
+            ("rig left, gray", gray, rig_maps.map_left, 0.0),
+            ("rig right, gray", gray, rig_maps.map_right, 0.0),
+            ("rig left, 3 channels", color, rig_maps.map_left, 0.0),
+            ("rig right, 3 channels, fill 3.5", color, rig_maps.map_right, 3.5),
+            ("720x1280 output, fill 3.5", color,
+             affine_map(720, 1280, H, W, 0.03, 1.5, (7.3, -4.1), dev), 3.5),
+            ("identity", color, ident, 0.0),
+            ("NaN/inf/far entries, fill -2", gray, wild, -2.0)):
+        got = fused_remap.remap_bilinear_fused(img, m, fill)
+        want = fused_remap.remap_bilinear_plain(img, m, fill)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        err("K11", e)
+        if not (torch.equal(got == fill, want == fill) and torch.equal(got, want)):
+            raise AssertionError(f"K11 {name}: not bit-equal (max |d| {e})")
+        print(f"  K11 {name}, {tuple(img.shape)} -> {tuple(got.shape)}: bit-equal, fill "
+              f"masks equal ({float((got == fill).float().mean()):.4f} filled)")
+    if not torch.equal(fused_remap.remap_bilinear_fused(color, ident), color):
+        raise AssertionError("K11 identity map: output != input")
+    print("  K11 identity map: output equals input")
+    # times of one view as the rig path warps it (3 channels), and of a gray
+    # one; the yardstick is grid_sample on the same view, its grid normalised
+    # once per rig and the image in its NCHW layout (never called by the port)
+    m = rig_maps.map_left
+    grid = torch.stack([m[..., 0] * (2.0 / (W - 1)) - 1.0, m[..., 1] * (2.0 / (H - 1)) - 1.0],
+                       -1)[None].contiguous()
+    nchw = color.permute(2, 0, 1)[None].contiguous()
+
+    def grid_sample(x):
+        return torch.nn.functional.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+                                               align_corners=True)
+
+    times["K11"] = (cuda_ms(lambda: fused_remap.remap_bilinear_fused(color, m)),
+                    cuda_ms(lambda: fused_remap.remap_bilinear_plain(color, m)))
+    library_ms = {"K11": cuda_ms(lambda: grid_sample(nchw))}
+    k11_gray = (cuda_ms(lambda: fused_remap.remap_bilinear_fused(gray, m)),
+                cuda_ms(lambda: fused_remap.remap_bilinear_plain(gray, m)),
+                cuda_ms(lambda: grid_sample(gray[None, None])))
+    want_in = fused_remap.remap_bilinear_plain(color, m)
+    lib = grid_sample(nchw)[0].permute(1, 2, 0)
+    inb = ((m[..., 0] >= 0) & (m[..., 0] <= W - 1) & (m[..., 1] >= 0) & (m[..., 1] <= H - 1))
+    inside = float((lib - want_in).abs()[inb].max())
+    print(f"  K11 {H}x{W}x3 view: kernel {times['K11'][0]:.4f} ms, plain {times['K11'][1]:.4f} ms, "
+          f"grid_sample {library_ms['K11']:.4f} ms (in-image max |d| vs grid_sample "
+          f"{inside:.3g}); gray: kernel {k11_gray[0]:.4f}, plain {k11_gray[1]:.4f}, "
+          f"grid_sample {k11_gray[2]:.4f} ms")
+
     # 4a. the SAD slice end to end, through the user's entry point
     print(f"== end to end: StereoModel(backend='hierarchical-pallas'), sad, {H}x{W}")
     model = StereoModel(backend="hierarchical-pallas", match=sad, pyramid=pyr)
@@ -565,7 +702,7 @@ def main() -> int:
     bl, br = (torch.as_tensor(a, device=dev) for a in pairs["box"])
     res, launches = drive(lambda: model(left, right))
     print(f"  launches per frame: {launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0, **NO_SGM}
+    want_launches = {"K1": 1, "K2": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0, **NOT_WTA}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches}")
 
@@ -609,7 +746,7 @@ def main() -> int:
         l, r, census, pyr, lr_check=True))
     res, prod_launches = drive(lambda: prod(left, right))
     print(f"  launches per frame: {prod_launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
+    want_launches = {"K1": 1, "K2": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
     if prod_launches != want_launches:
         raise AssertionError(f"launch counts {prod_launches} != {want_launches}")
     check_median("production", res.disparity)
@@ -624,7 +761,7 @@ def main() -> int:
     flag = flagship()
     res, flag_launches = drive(lambda: flag(left, right))
     print(f"  launches per frame: {flag_launches}")
-    want_launches = {"K1": 1, "K2": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
+    want_launches = {"K1": 1, "K2": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
     if flag_launches != want_launches:
         raise AssertionError(f"launch counts {flag_launches} != {want_launches}")
     check_median("flagship", res.disparity)
@@ -641,7 +778,7 @@ def main() -> int:
     run = prod.video(keyframe_interval=4)
     vres, video_launches = drive(lambda: run(clip_l, clip_r))
     print(f"  launches for 2 keyframes + 3 seeded frames: {video_launches}")
-    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5, **NO_SGM}
+    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5, **NOT_WTA}
     if video_launches != want_launches:
         raise AssertionError(f"launch counts {video_launches} != {want_launches}")
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True)
@@ -655,7 +792,7 @@ def main() -> int:
         fused_refine.FUSED, clip_l[1], clip_r[1], vres.disparity[0], census, pyr,
         lr_check=True))
     print(f"  launches per seeded frame: {seeded_launches}")
-    want_launches = {"K1": 0, "K2": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NO_SGM}
+    want_launches = {"K1": 0, "K2": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
     if seeded_launches != want_launches:
         raise AssertionError(f"launch counts {seeded_launches} != {want_launches}")
 
@@ -721,6 +858,77 @@ def main() -> int:
         if not torch.equal(vplain.valid[t], vres.valid[t]):
             raise AssertionError(f"sgm video frame {t}: valid masks differ")
 
+    # 4h. the rig path: raw distorted RGB views of a textured plane, the gain
+    # match, K11 per view, production, metric depth, points and the PLY; then
+    # the depth utilities on its u8 depth
+    print(f"== end to end: the rig path, {H}x{W} RGB, a textured plane at Z = {RIG_Z}")
+    t0 = time.perf_counter()
+    rig = plane_rig(H, W, RIG_K, RIG_R, RIG_T, RIG_DIST1, RIG_DIST2, depth=RIG_Z,
+                    feature_px=3.5, right_gain=0.85, seed=SEED)
+    print(f"  scene rendered in {time.perf_counter() - t0:.1f} s (rig maps made once, in 3g)")
+    raw_l, raw_r = (torch.as_tensor(a, device=dev) for a in (rig.left, rig.right))
+    K_new = rig_maps.K_new
+    intr = torch.stack([K_new[0, 0], K_new[1, 1], K_new[0, 2], K_new[1, 2]])
+
+    def rig_path(ply=None, plain=False):
+        """One frame: the user's entry points, or (``plain``) the same steps
+        through every kernel's plain version; ``ply`` names a file to write
+        the point cloud to."""
+        right_n = photometric.normalize_brightness_f32(raw_r, raw_l)
+        if plain:
+            lr, rr = (fused_remap.remap_bilinear_plain(v.float(), mp)
+                      for v, mp in ((raw_l, rig_maps.map_left), (right_n, rig_maps.map_right)))
+            res = plain_prod(lr, rr)
+        else:
+            lr, rr = rectify.rectify_pair(raw_l, right_n, rig_maps, backend="pallas")
+            res = prod(lr, rr)
+        z = geometry.disparity_to_depth(res.disparity, rig_maps.focal, rig_maps.baseline)
+        pts = geometry.depth_to_points(z, intr)
+        n = io.save_ply(ply, pts, colors=lr, valid=res.valid) if ply else None
+        return lr, rr, res, z, pts, n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "rig.ply")
+        (lr, rr, res, z, pts, n), rig_launches = drive_checked(
+            "rig path, one frame", lambda: rig_path(ply),
+            {"K11": 2, "K1": 1, "K2": 3, "K2 emit": 1, "K4": 1, "K5": 1, "K3": 1})
+        with open(ply, "rb") as f:
+            header = f.read(200).split(b"end_header")[0].decode()
+    crop = (slice(100, -100), slice(250, -250))
+    med, want = float(res.disparity[crop].median()), float(np.median(rig.disparity[crop]))
+    print(f"  rig: median disparity {med:.4f} over [100:-100, 250:-250] (analytic f*B/Z_rect "
+          f"{want:.4f} +- 0.5); valid share {float(res.valid.float().mean()):.4f}")
+    if abs(med - want) > 0.5:
+        raise AssertionError(f"rig path: median disparity {med} != {want}")
+    z_med, z_want = float(z[crop].median()), float(np.median(rig.z_rect[crop]))
+    print(f"  rig: median depth {z_med:.5f} (analytic {z_want:.5f} +- 2%)")
+    if abs(z_med / z_want - 1) > 0.02:
+        raise AssertionError(f"rig path: median depth {z_med} != {z_want}")
+    keep = int((res.valid & torch.isfinite(pts).all(-1)).sum())
+    print(f"  rig: PLY of {n} vertices ({keep} valid finite points; header "
+          f"{header.splitlines()[2]!r})")
+    if not (n == keep > 0 and f"element vertex {keep}" in header):
+        raise AssertionError(f"rig path: PLY holds {n} vertices, want {keep}")
+    p_lr, p_rr, p_res, p_z, p_pts, _ = rig_path(plain=True)
+    torch.cuda.synchronize()
+    for name, a, b in (("rectified left", p_lr, lr), ("rectified right", p_rr, rr)):
+        err("K11", check_map(f"rig path {name}, kernel vs plain", a, b))
+    check_equal("rig path disparity, kernel path vs plain path", p_res.disparity, p_res.valid,
+                res.disparity, res.valid)
+    if not (torch.equal(p_res.valid, res.valid) and torch.equal(p_z, z)
+            and torch.equal(p_pts, pts)):
+        raise AssertionError("rig path: valid, depth or points differ from the plain path")
+    print("  rig path: valid mask, depth and points equal to the plain path's")
+    d8 = dense.disparity_to_depth_u8(res.disparity, census.num_disparities)
+    zones = kmeans.depth_split(d8, 4)
+    if zones != kmeans.depth_split(d8.cpu(), 4):
+        raise AssertionError("depth_split: the card and the CPU disagree")
+    for lo, hi in zones:
+        if not torch.equal(depth_ops.slice_mask(d8, lo, hi).cpu(),
+                           depth_ops.slice_mask(d8.cpu(), lo, hi)):
+            raise AssertionError(f"slice_mask {lo}-{hi}: the card and the CPU disagree")
+    print(f"  depth_split(depth_u8, 4) {zones} and slice_mask per zone: card equals CPU")
+
     # 5. per-frame times
     print(f"== times (CUDA events, median of {REPS} after warm-up), card: {smi[0]}")
     frame = {
@@ -749,6 +957,19 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"  production, host wall clock back to back: "
           f"{(time.perf_counter() - t0) * 1e3 / REPS:.4f} ms/frame")
+    rig_ms = cuda_ms_turns(rig_path, lambda: prod(lr, rr))
+    rig_plain_ms = cuda_ms_turns(lambda: rig_path(plain=True), lambda: plain_prod(lr, rr))
+    print(f"  {H}x{W} rig path (no PLY) / production alone on its rectified pair, timed in "
+          f"turns: kernel paths {rig_ms[0]:.4f} / {rig_ms[1]:.4f} ms/frame, plain paths "
+          f"{rig_plain_ms[0]:.4f} / {rig_plain_ms[1]:.4f} ms/frame")
+    with tempfile.TemporaryDirectory() as tmp:
+        rig_path(os.path.join(tmp, "rig.ply"))
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            rig_path(os.path.join(tmp, "rig.ply"))
+        torch.cuda.synchronize()
+    print(f"  rig path with the PLY written, host wall clock back to back: "
+          f"{(time.perf_counter() - t0) * 1e3 / REPS:.4f} ms/frame")
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
@@ -771,12 +992,16 @@ def main() -> int:
         "K7": bound((2 + 3 + 3) / 3 * 4 * DV, 8 * DV),
         "K8": bound(8 * DV + 16 * HW, 11 * DV),
         "K9": bound(4 * DV + 16 * HW, 3 * DV),
+        # one 3-channel view: the map (8 B/px), source and output (12 B/px
+        # each); weights 8 ops/px, 7 per channel
+        "K11": bound(32 * HW, 29 * HW),
     }
     path3 = "path 3, sgm-pallas 4 directions D=64 window 5 LR"
     origin = {n: ("production, hierarchical-pallas", prod_launches) for n in KERNELS}
     origin.update({n: (path3, sgm_paths[path3][2]) for n in ("K6", "K7", "K8")})
     origin["K9"] = ("path 3, 2 directions", sgm_paths[
         "path 3, sgm-pallas 2 directions D=64 window 5 LR"][2])
+    origin["K11"] = ("rig path", rig_launches)
     print(f"== kernels against their bounds (H100 SXM peaks: {PEAK_BYTES / 1e12} TB/s, "
           f"{PEAK_F32 / 1e12} TFLOP/s f32), card: {smi[0]}")
     for n in KERNELS:
@@ -786,7 +1011,7 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": origin[n][1][n], "path": origin[n][0], "max_abs_err": errs[n],
          "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": bounds[n][0],
-         "bound_by": bounds[n][1], "library_ms": None}
+         "bound_by": bounds[n][1], "library_ms": library_ms.get(n)}
         for n, k in KERNELS.items()
     ]}
     for entry in summary["kernels"]:

@@ -13,7 +13,13 @@ the coarsest level in ``match.fused_dense``, the tile-base refine kernel at
 every finer level in ``match.fused_refine``, then the LR check, the
 occlusion fill and the 3×3 median in ``match.fused_post``), ``"pallas"``
 (the exhaustive matcher at full resolution, ``flagship()``) and ``"dense"``
-(plain torch), plus ``batched()`` and the temporally seeded ``video()``.
+(plain torch), plus ``batched()`` and the temporally seeded ``video()``;
+the SGM backends ``"hierarchical-sgm"``, ``"sgm-pallas"`` and ``"sgm"``;
+and the calibrated-rig path around them: ``ops.photometric`` (gain match),
+``ops.rectify`` (maps once per rig, then one bilinear remap per view, kernel
+K11 in ``ops.fused_remap``), ``fusion.geometry`` (metric depth, points) and
+``core.io.save_ply``, with the depth utilities of ``ops`` (``kmeans``,
+``depth``, ``mask``, ``resize``, ``adjust``, ``temporal``).
 
 Every function takes its device from its input tensors. A tensor on the CPU
 runs each kernel's plain PyTorch version; a CUDA tensor launches the kernel
