@@ -19,7 +19,9 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    d. K4 and K5 at 1080×1920 on the production maps and on a random map;
    e. at a small unaligned size, the branches the main paths do not take
       (SSD, uniqueness, windows 5 and 7, census windows 5 and 9, a row
-      window ``g_row0``/``g_h``, R=4, the right view with R=4);
+      window ``g_row0``/``g_h`` in K1, K2 and K6 — negative ``g_row0`` and
+      rows past ``g_h``, as a row shard's halo has them — R=4, the right
+      view with R=4);
    f. the SGM kernels: K6 at the 135×240 coarse level (D=16, window 9, SAD
       and census) on both scenes and at 1080×1920 (D=64, window 5, SAD);
       K7 in each of the 8 directions, K8 and K9 (2 directions) at
@@ -30,7 +32,13 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       fill 3.5), a 720×1280 output from the 1080×1920 source, the identity
       map (output equals input) and a map spiked with NaN, ±inf and
       far-away entries; beside it, ``grid_sample`` on the same view as a
-      yardstick (``library_ms``; the port never calls it).
+      yardstick (``library_ms``; the port never calls it);
+   h. K10, the sharded relay's seeded scan: the 1080p D=64 volume of 3f
+      split at rows 360 and 720, each of the six relayed directions (↓y,
+      ↑y, ↘, ↙, ↗, ↖) scanned shard by shard through K10 against one
+      continuous K7 scan (output) and its plain version (final carry); K10
+      against its plain version on the middle shard from the relayed
+      carry; at 70×300, D=24, D=144 and bf16.
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -55,12 +63,32 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       depth (medians within 0.5 px and 2%), the PLY's vertex count, the
       plain path on the same card, and the depth utilities against the same
       calls on CPU tensors;
+   i. ``sgm-pallas`` sharded (``StereoModel.sharded``) over a mesh of
+      ``[cuda:0] * 3``: 4 directions exact (K10 relays ↓y and ↑y from shard
+      to shard), bit-equal to the unsharded kernel path and to its own plain
+      path; 8 directions, bit-equal to unsharded; windowed mode (warm-up
+      16) within the reference's statistical rule and equal to its plain
+      path;
+   j. the other sharded paths, each bit-equal to its unsharded kernel path
+      and to its own plain path: ``flagship()`` on 4 shards at 1080p;
+      production ``hierarchical-pallas`` on 4 shards at 1024×1920 (no row
+      count of 1080 admits a mesh at ``levels=4``: the shard's coarsest
+      height must divide by a multiple of 8) with ``tile_rows=32``, and
+      ``hierarchical-sgm`` there (close to its unsharded path only: its
+      coarse level is the plain-torch SGM relay); a 5-frame
+      ``match_temporal_sharded``; ``match_batch_hierarchical_sharded`` with
+      ``data=2``; ``dense`` and ``sgm`` on 3 shards at 270×480 (integer
+      images, so their cumulative sums are exact); ``normalize_depth_
+      sharded``;
 5. times (CUDA events, median of ``REPS`` runs after a warm-up; the plain
    SGM paths at 1080p loop over thousands of scan steps and take
    ``PLAIN_SGM_REPS``) of kernel and plain paths, per kernel and per frame,
    and each kernel's bound: the larger of its bytes over the card's memory
    rate and its operations over its f32 rate; the rig path per frame
-   against production alone on its rectified pair.
+   against production alone on its rectified pair; K10 per launch on a
+   360-row shard; the sharded ``sgm-pallas``, ``flagship()`` and production
+   frames against their unsharded frames, timed in turns (one card carries
+   every shard, so the sharded frames are not expected to be faster).
 
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
@@ -153,11 +181,11 @@ def affine_map(h, w, sh, sw, angle, scale, shift, dev):
     return torch.stack([x, y], -1).contiguous()
 
 
-def check_equal(name, ref_disp, ref_valid, got_disp, got_valid, atol=0.05):
+def check_equal(name, ref_disp, ref_valid, got_disp, got_valid, atol=0.05, exact=True):
     """The reference's "close" rule (valid masks agree on > 99.9% of pixels,
-    99.9th percentile of |Δd| over pixels valid in both ≤ atol px), then
-    equality: masks equal and max |Δd| over all pixels ≤ ``MAX_ERR``.
-    Returns the largest |Δd|."""
+    99.9th percentile of |Δd| over pixels valid in both ≤ atol px), then,
+    with ``exact``, equality: masks equal and max |Δd| over all pixels ≤
+    ``MAX_ERR``. Returns the largest |Δd|."""
     rv, gv = ref_valid.cpu().numpy(), got_valid.cpu().numpy()
     agree = float((rv == gv).mean())
     d = (ref_disp.double() - got_disp.double()).abs().cpu().numpy()
@@ -167,7 +195,7 @@ def check_equal(name, ref_disp, ref_valid, got_disp, got_valid, atol=0.05):
     print(f"  {name}: valid agree {agree:.6f}, p99.9 |dd| {q:.3g}, max |dd| {max_err:.3g}")
     if not (agree > 0.999 and q <= atol):
         raise AssertionError(f"{name}: not close (agree {agree}, p99.9 {q})")
-    if not (agree == 1.0 and max_err <= MAX_ERR):
+    if exact and not (agree == 1.0 and max_err <= MAX_ERR):
         raise AssertionError(f"{name}: not bit-equal (agree {agree}, max |dd| {max_err})")
     return max_err
 
@@ -244,6 +272,8 @@ def main() -> int:
     from stepth_tpu_torch.models.stereo import StereoModel, flagship
     from stepth_tpu_torch.ops import depth as depth_ops
     from stepth_tpu_torch.ops import fused_remap, kmeans, photometric, rectify
+    from stepth_tpu_torch.parallel import sgm_pallas_sharded, sharded
+    from stepth_tpu_torch.parallel.mesh import make_mesh
     from stepth_tpu_torch.utils import scenes
     from stepth_tpu_torch.utils.rig import plane_rig
 
@@ -274,8 +304,8 @@ def main() -> int:
     KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
                "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5,
                "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9,
-               "K11": fused_remap.K11}
-    NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K11": 0}  # off the WTA paths
+               "K10": fused_sgm.K10, "K11": fused_remap.K11}
+    NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}  # off the WTA paths
     errs = {n: 0.0 for n in KERNELS}
     times = {}
 
@@ -295,7 +325,7 @@ def main() -> int:
     census = MatchConfig(num_disparities=128, window=9, cost="census")
     pyr = PyramidConfig(levels=4, coarsest_disparities=16)
     H, W = 1080, 1920
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     pairs = {"make_pair": make_pair(H, W, seed=SEED)}
     box = scenes.make_scene("box", H, W, 128, seed=1)
     pairs["box"] = (box.left, box.right)
@@ -500,6 +530,17 @@ def main() -> int:
             err("K2 emit", e)
         else:
             err("K2", check_map(tag, want, got))
+    # K6 on a halo-extended row shard: rows above the image (g_row0 < 0) and
+    # past its last row (g_row0 + rows > g_h) cost nothing
+    for cost, cw, dtype, g_row0, g_h in (("sad", 7, torch.float32, -4, h - 8),
+                                         ("census", 5, torch.bfloat16, -6, h - 9),
+                                         ("ssd", 7, torch.float32, 9, 50)):
+        c = MatchConfig(num_disparities=24, window=5, cost=cost, census_window=cw)
+        got = fused_sgm.aggregated_volume(lg, rg, c, dtype, g_row0, g_h)
+        want = fused_sgm.aggregated_volume_plain(lg, rg, c, dtype, g_row0, g_h)
+        torch.cuda.synchronize()
+        err("K6", check_map(f"K6 {cost} census_window {cw} {str(dtype)[6:]} g_row0 {g_row0} "
+                            f"g_h {g_h}", want.float(), got.float()))
 
     # 3f. the SGM kernels against their plain versions: K6, K7 in every
     # direction (kernel and plain accumulators compared after each launch),
@@ -695,6 +736,76 @@ def main() -> int:
           f"{inside:.3g}); gray: kernel {k11_gray[0]:.4f}, plain {k11_gray[1]:.4f}, "
           f"grid_sample {k11_gray[2]:.4f} ms")
 
+    # 3h. K10 against its plain version: the 1080p D=64 window-5 SAD volume of
+    # 3f split at rows 360 and 720 (the shards of 4i), onto its 2-direction
+    # sum; each relayed direction through K10 shard by shard against one
+    # continuous K7 scan (outputs) and its plain version (the final carry);
+    # K10 against its plain version on the middle shard from the relayed
+    # carry; at 70x300, D=24, D=144 and bf16, from random carries
+    print("== K10 (the sharded relay's seeded scan) vs K7 and its plain version")
+    relayed = [(rev, sh) for axis, rev, sh in fused_sgm.directions(8) if axis == 1]
+
+    def relay(scan_carry, vol, acc, cuts, reverse, shift, p1, p2):
+        """``acc + L`` of one direction over ``vol`` split at the rows
+        ``cuts``, one seeded scan per shard in owner order; returns the sum,
+        the carry that entered the middle shard and the last final carry."""
+        bounds = list(zip((0,) + cuts, cuts + (vol.shape[1],)))
+        outs, carry, into_mid = [None] * len(bounds), None, None
+        for i in (range(len(bounds) - 1, -1, -1) if reverse else range(len(bounds))):
+            a, b = bounds[i]
+            if i == len(bounds) // 2:
+                into_mid = carry
+            outs[i], carry = scan_carry(vol[:, a:b].contiguous(), acc[:, a:b].contiguous(),
+                                        carry, p1, p2, reverse=reverse, shift=shift)
+        return torch.cat(outs, 1), into_mid, carry
+
+    acc2 = sums3[2]
+    th3 = H // 3  # the shard height of 4i
+    for rev, sh in relayed:
+        tag = f"{H}x{W} D=64 K10 {arrows[(1, rev, sh)]} split at rows {th3}, {2 * th3}"
+        got, into_mid, got_c = relay(fused_sgm.scan_direction_carry, vol3, acc2,
+                                     (th3, 2 * th3), rev, sh, p1, p2)
+        cont = fused_sgm.scan_direction(vol3, acc2.clone(), p1, p2, axis=1, reverse=rev,
+                                        shift=sh)
+        _, want_c = fused_sgm.scan_direction_carry_plain(vol3, None, None, p1, p2,
+                                                         reverse=rev, shift=sh)
+        torch.cuda.synchronize()
+        err("K10", check_map(f"{tag} vs continuous K7", cont, got))
+        err("K10", check_map(f"{tag}, last carry vs the plain continuous scan's", want_c,
+                             got_c))
+        mid = (vol3[:, th3:2 * th3].contiguous(), acc2[:, th3:2 * th3].contiguous())
+        want = fused_sgm.scan_direction_carry_plain(mid[0], mid[1].clone(), into_mid, p1, p2,
+                                                    reverse=rev, shift=sh)
+        got = fused_sgm.scan_direction_carry(mid[0], mid[1].clone(), into_mid, p1, p2,
+                                             reverse=rev, shift=sh)
+        torch.cuda.synchronize()
+        err("K10", check_maps(f"{H}x{W} D=64 K10 {arrows[(1, rev, sh)]} middle shard vs plain",
+                              want, got, ("out", "carry")))
+    for D, dtype in ((24, torch.float32), (144, torch.float32), (24, torch.bfloat16)):
+        vol = torch.randint(0, 50, (D, h, w), generator=gen, device=dev).to(dtype)
+        acc = torch.randint(0, 500, (D, h, w), generator=gen, device=dev).to(dtype)
+        c0 = torch.randint(0, 200, (D, w), generator=gen, device=dev).float()
+        for rev, sh in relayed:
+            tag = f"{h}x{w} D={D} {str(dtype)[6:]} K10 {arrows[(1, rev, sh)]}"
+            kw = dict(reverse=rev, shift=sh)
+            want = fused_sgm.scan_direction_carry_plain(vol, acc.clone(), c0, 25.0, 100.0, **kw)
+            got = fused_sgm.scan_direction_carry(vol, acc.clone(), c0, 25.0, 100.0, **kw)
+            split = relay(fused_sgm.scan_direction_carry, vol, acc, (24, 48), rev, sh, 25.0,
+                          100.0)
+            cont = fused_sgm.scan_direction(vol, acc.clone(), 25.0, 100.0, axis=1, **kw)
+            torch.cuda.synchronize()
+            err("K10", check_maps(f"{tag} vs plain", want, got, ("out", "carry")))
+            err("K10", check_map(f"{tag} split at rows 24, 48 vs continuous K7", cont.float(),
+                                 split[0].float()))
+    mid = (vol3[:, th3:2 * th3].contiguous(), acc2[:, th3:2 * th3].clone(),
+           vol3[:, 100].clone())
+    times["K10"] = (
+        cuda_ms(lambda: fused_sgm.scan_direction_carry(*mid, p1, p2, reverse=False)),
+        cuda_ms(lambda: fused_sgm.scan_direction_carry_plain(*mid, p1, p2, reverse=False),
+                PLAIN_SGM_REPS))
+    print(f"  K10 ↓y {th3}x{W} D=64 shard: kernel {times['K10'][0]:.4f} ms, plain "
+          f"{times['K10'][1]:.4f} ms (plain: median of {PLAIN_SGM_REPS})")
+
     # 4a. the SAD slice end to end, through the user's entry point
     print(f"== end to end: StereoModel(backend='hierarchical-pallas'), sad, {H}x{W}")
     model = StereoModel(backend="hierarchical-pallas", match=sad, pyramid=pyr)
@@ -720,7 +831,7 @@ def main() -> int:
     def check_median(name, d, want=24.0):
         med = float(d[50:-50, 100:-100].median())
         print(f"  {name}: median disparity {med:.4f} (want {want} +- 0.5)")
-        if abs(med - want) > 0.5:
+        if not abs(med - want) <= 0.5:  # a NaN median fails too
             raise AssertionError(f"{name}: median disparity {med} != {want}")
 
     gt = torch.as_tensor(box.disparity, device=dev)
@@ -929,6 +1040,133 @@ def main() -> int:
             raise AssertionError(f"slice_mask {lo}-{hi}: the card and the CPU disagree")
     print(f"  depth_split(depth_u8, 4) {zones} and slice_mask per zone: card equals CPU")
 
+    def check_same(name, want, got, exact=True):
+        """Two MatchResults: the disparity by ``check_equal``; with ``exact``
+        the valid masks and costs equal too."""
+        e = check_equal(name, want.disparity, want.valid, got.disparity, got.valid, exact=exact)
+        if exact and not (torch.equal(want.valid, got.valid) and torch.equal(want.cost, got.cost)):
+            raise AssertionError(f"{name}: valid masks or costs differ")
+        return e
+
+    # 4i. sgm-pallas sharded over a mesh of [cuda:0] * 3 (path 3 sharded):
+    # exact mode at 4 and 8 directions, then windowed mode
+    mesh3 = make_mesh(tile=3, devices=["cuda:0"] * 3)
+    for ndir in (4, 8):
+        tag = f"path 3 sharded, sgm-pallas {ndir} directions exact, 3 shards"
+        print(f"== end to end: {tag}, {H}x{W}")
+        s_cfg = SGMConfig(directions=ndir)
+        m = StereoModel(backend="sgm-pallas", match=sgm_cfg, sgm=s_cfg)
+        run = m.sharded(mesh3)
+        res, launches = drive_checked(tag, lambda: run(left, right),
+                                      {"K6": 3, "K7": 6, "K10": 6 if ndir == 4 else 18,
+                                       "K9": 3, "K4": 3, "K5": 3, "K3": 3})
+        check_median(tag, res.disparity)
+        unsharded = m(left, right)
+        check_same(f"{tag} vs unsharded sgm-pallas", unsharded, res)
+        if ndir == 4:
+            sharded_launches, run4, model4, unsharded4 = launches, run, m, unsharded
+            check_same(f"{tag} vs its plain path", sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
+                left, right, sgm_cfg, s_cfg, mesh3, plain=True), res)
+    tag = "path 3 sharded, sgm-pallas 4 directions windowed (warm-up 16), 3 shards"
+    print(f"== end to end: {tag}, {H}x{W}")
+    res_w, _ = drive_checked(tag, lambda: run4(left, right, exact=False, warmup=16),
+                             {"K6": 3, "K7": 12, "K9": 3, "K4": 3, "K5": 3, "K3": 3})
+    check_same(f"{tag} vs its plain path", sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
+        left, right, sgm_cfg, sgm4, mesh3, exact=False, warmup=16, plain=True), res_w)
+    # the reference's statistical rule (tests/test_sgm_pallas_sharded.py:
+    # 101-124) against the unsharded frame; "far" = rows at least 64 from a seam
+    d = (res_w.disparity - unsharded4.disparity).abs()
+    rows = torch.arange(H, device=dev)[:, None]
+    far = ((rows - th3).abs() >= 64) & ((rows - 2 * th3).abs() >= 64)
+    med, le1 = float(d.median()), float((d <= 1.0).float().mean())
+    far_ok = float((d <= 1e-4)[far.expand(H, W)].float().mean())
+    print(f"  windowed vs unsharded: median |dd| {med:.4g}, share |dd| <= 1 {le1:.6f}, share "
+          f"equal 64+ rows from a seam {far_ok:.6f}")
+    if not (med <= 0.1 and le1 > 0.97 and far_ok > 0.99):
+        raise AssertionError(f"{tag}: outside the reference's rule")
+
+    # 4j. the other sharded paths
+    mesh4 = make_mesh(tile=4, devices=["cuda:0"] * 4)
+    tag = "flagship() sharded, 4 shards"
+    print(f"== end to end: {tag}, {H}x{W}")
+    flag4 = flag.sharded(mesh4)
+    res, _ = drive_checked(tag, lambda: flag4(left, right), {"K1": 4, "K4": 4})
+    check_median(tag, res.disparity)
+    check_same(f"{tag} vs unsharded flagship()", flag(left, right), res)
+    check_same(f"{tag} vs its plain path", sharded.match_pair_sharded_pallas(
+        left, right, flag.match, mesh4, plain=True), res)
+
+    H2 = H - H % 64  # 1024: 1080 rows admit no mesh at levels=4 (see the docstring)
+    l2, r2 = left[:H2], right[:H2]
+    refine4 = {"K2": 12, "K2 emit": 4, "K4": 4, "K5": 4, "K3": 4}
+    # the SGM coarse level is the plain-torch relay: close to the unsharded
+    # path's fused SGM only (exact-cost ties may break the other way)
+    for model_, coarse, want, exact in ((prod, "wta", dict(refine4, K1=4), True),
+                                        (hs_prod, "sgm", refine4, False)):
+        tag = f"{model_.backend} production sharded, 4 shards"
+        print(f"== end to end: {tag}, {H2}x{W}, tile_rows 32")
+        run = model_.sharded(mesh4)
+        res, _ = drive_checked(tag, lambda: run(l2, r2), want)
+        check_median(tag, res.disparity)
+        check_same(f"{tag} vs unsharded at tile_rows 32", fused_refine.match_hierarchical_fused(
+            l2, r2, census, pyr, 32, lr_check=True, coarse_backend=coarse, sgm=sgm4), res,
+            exact=exact)
+        check_same(f"{tag} vs its plain path", sharded.match_hierarchical_sharded(
+            l2, r2, census, pyr, mesh4, coarse_backend=coarse, sgm=sgm4, lr_check=True,
+            plain=True), res)
+        if coarse == "wta":
+            prod4 = run
+
+    tag = "production match_temporal_sharded(keyframe_interval=4), 5 frames, 4 shards"
+    print(f"== end to end: {tag}, {H2}x{W}")
+    cl2, cr2 = clip_l[:, :H2], clip_r[:, :H2]
+    vres2, _ = drive_checked(tag, lambda: sharded.match_temporal_sharded(
+        cl2, cr2, census, pyr, mesh4, keyframe_interval=4, lr_check=True),
+        {"K1": 8, "K2": 36, "K2 emit": 20, "K4": 20, "K5": 20, "K3": 20})
+    vwant = fused_refine.match_temporal_fused(cl2, cr2, census, pyr, 4, 32, lr_check=True)
+    vplain = sharded.match_temporal_sharded(cl2, cr2, census, pyr, mesh4, keyframe_interval=4,
+                                            lr_check=True, plain=True)
+    for t, sft in enumerate(shifts):
+        check_median(f"sharded video frame {t}", vres2.disparity[t], float(sft))
+        frame_t = [dense.MatchResult(*(f[t] for f in r)) for r in (vwant, vplain, vres2)]
+        check_same(f"sharded video frame {t} vs unsharded", frame_t[0], frame_t[2])
+        check_same(f"sharded video frame {t} vs its plain path", frame_t[1], frame_t[2])
+
+    tag = "production match_batch_hierarchical_sharded, data=2 (make_pair, box)"
+    print(f"== end to end: {tag}, {H}x{W}")
+    mesh_d = make_mesh(data=2, tile=1, devices=["cuda:0"] * 2)
+    bl2, br2 = torch.stack([left, bl]), torch.stack([right, br])
+    bres, _ = drive_checked(tag, lambda: sharded.match_batch_hierarchical_sharded(
+        bl2, br2, census, pyr, mesh_d, lr_check=True),
+        {"K1": 2, "K2": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2})
+    bplain = sharded.match_batch_hierarchical_sharded(bl2, br2, census, pyr, mesh_d,
+                                                      lr_check=True, plain=True)
+    for i, (sl_, sr_) in enumerate(((left, right), (bl, br))):
+        got = dense.MatchResult(*(f[i] for f in bres))
+        check_same(f"batch frame {i} vs unsharded production", prod(sl_, sr_), got)
+        check_same(f"batch frame {i} vs its plain path",
+                   dense.MatchResult(*(f[i] for f in bplain)), got)
+
+    # dense and sgm (plain torch) on integer-valued images: every cumulative
+    # and path sum is then exact, whatever rows a shard's sums start from
+    lq, rq = (torch.round(t[:H // 4, :W // 4]).contiguous() for t in (left, right))
+    for backend, kw in (("dense", dict(match=MatchConfig(num_disparities=64, window=9))),
+                        ("sgm", dict(match=sgm_cfg, sgm=sgm4))):
+        tag = f"{backend} sharded, 3 shards"
+        print(f"== end to end: {tag}, {H // 4}x{W // 4} integer images")
+        m = StereoModel(backend=backend, **kw)
+        res, _ = drive_checked(tag, lambda: m.sharded(mesh3)(lq, rq), {})
+        check_median(tag, res.disparity)
+        check_same(f"{tag} vs unsharded {backend}", m(lq, rq), res)
+
+    d8 = dense.disparity_to_depth_u8(prod(bl, br).disparity, census.num_disparities)
+    want = (d8.int() * 255 // int(d8.max())).to(torch.uint8)
+    if not (torch.equal(sharded.normalize_depth_sharded(d8, mesh3), want)
+            and not bool(sharded.normalize_depth_sharded(torch.zeros_like(d8), mesh3).any())):
+        raise AssertionError("normalize_depth_sharded: not the global max rule")
+    print(f"  normalize_depth_sharded on 3 shards of {tuple(d8.shape)} u8 depth: equal to the "
+          f"global max rule; all-zero input stays zero")
+
     # 5. per-frame times
     print(f"== times (CUDA events, median of {REPS} after warm-up), card: {smi[0]}")
     frame = {
@@ -970,12 +1208,22 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"  rig path with the PLY written, host wall clock back to back: "
           f"{(time.perf_counter() - t0) * 1e3 / REPS:.4f} ms/frame")
+    for name, a, b in (
+            ("sgm-pallas 4 directions, 3 shards / unsharded", lambda: run4(left, right),
+             lambda: model4(left, right)),
+            ("flagship(), 4 shards / unsharded", lambda: flag4(left, right),
+             lambda: flag(left, right)),
+            (f"production {H2}x{W}, 4 shards / unsharded (tile_rows 32)", lambda: prod4(l2, r2),
+             lambda: fused_refine.match_hierarchical_fused(l2, r2, census, pyr, 32,
+                                                           lr_check=True))):
+        ms = cuda_ms_turns(a, b)
+        print(f"  {name}, timed in turns: {ms[0]:.4f} / {ms[1]:.4f} ms/frame")
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
     # bounds at the shapes each kernel was timed at: K1-K5 on the production
     # path (K1 and K2 census, planes in the bytes; K2 counts the candidates
-    # its plans ran), K6-K9 on sgm-pallas at 1080p, D=64 (K7 per launch,
+    # its plans ran), K6-K10 on sgm-pallas at 1080p, D=64 (K7 per launch,
     # averaged over the three of a frame; ops per (pixel, d): a scan step ~8,
     # K8 ~11, K9 3)
     hc, wc = 135, 240
@@ -992,6 +1240,9 @@ def main() -> int:
         "K7": bound((2 + 3 + 3) / 3 * 4 * DV, 8 * DV),
         "K8": bound(8 * DV + 16 * HW, 11 * DV),
         "K9": bound(4 * DV + 16 * HW, 3 * DV),
+        # one launch on an H/3-row shard: vol + acc read, out written, and the
+        # two f32 [D, W] carries; ~8 ops per (pixel, d), as K7
+        "K10": bound(12 * DV // 3 + 2 * 4 * 64 * W, 8 * DV // 3),
         # one 3-channel view: the map (8 B/px), source and output (12 B/px
         # each); weights 8 ops/px, 7 per channel
         "K11": bound(32 * HW, 29 * HW),
@@ -1001,6 +1252,7 @@ def main() -> int:
     origin.update({n: (path3, sgm_paths[path3][2]) for n in ("K6", "K7", "K8")})
     origin["K9"] = ("path 3, 2 directions", sgm_paths[
         "path 3, sgm-pallas 2 directions D=64 window 5 LR"][2])
+    origin["K10"] = ("path 3 sharded, 3 shards, 4 directions", sharded_launches)
     origin["K11"] = ("rig path", rig_launches)
     print(f"== kernels against their bounds (H100 SXM peaks: {PEAK_BYTES / 1e12} TB/s, "
           f"{PEAK_F32 / 1e12} TFLOP/s f32), card: {smi[0]}")
@@ -1017,6 +1269,7 @@ def main() -> int:
     for entry in summary["kernels"]:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: not launched on {entry['path']}")
+    print(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-// K6-K9 — the semi-global matching pipeline.
+// K6-K10 — the semi-global matching pipeline.
 //
-// Replaces the four Pallas kernels of stepth_tpu/match/pallas_sgm.py:
-//   K6 `_volume_kernel`    -> sgm_volume_kernel:   box-aggregated cost volume
-//   K7 `_scan_kernel`      -> sgm_scan_kernel:     one SGM direction, acc + L
-//   K8 `_scan_wta_kernel`  -> sgm_scan_wta_kernel: the final up-scan with the
-//                                                  WTA fused in
-//   K9 `_wta_kernel`       -> sgm_wta_kernel:      WTA from a volume
+// Replaces the five Pallas kernels of stepth_tpu/match/pallas_sgm.py:
+//   K6  `_volume_kernel`     -> sgm_volume_kernel:   box-aggregated cost volume
+//   K7  `_scan_kernel`       -> sgm_scan_kernel:     one SGM direction, acc + L
+//   K8  `_scan_wta_kernel`   -> sgm_scan_wta_kernel: the final up-scan with the
+//                                                    WTA fused in
+//   K9  `_wta_kernel`        -> sgm_wta_kernel:      WTA from a volume
+//   K10 `_scan_kernel_carry` -> sgm_scan_kernel<..., CARRY = true>: K7 on a row
+//                               shard, seeded from the upstream shard's final
+//                               carry and emitting its own (the sharded relay)
 // Volumes are [D, H, W] (d outermost, as the reference's), f32 or bf16, of
 // the real image size: no padding, and no transposes — a scan indexes
 // either axis directly.
@@ -29,6 +32,19 @@
 // current step's arithmetic. What bounds a scan: the bytes (vol read, acc
 // read and written) at full resolution; the serial chain (H or W dependent
 // steps of ~a dozen shuffles each) at the 135x240 coarse level.
+//
+// K10 is K7's kernel with CARRY set; K7's instantiation compiles without the
+// carry code. The scanned axis is rows (dy = +-1). A chain that starts on the
+// shard's entry row (row 0 for dy > 0, h - 1 for dy < 0) at column x takes
+// prev[d] = carry_in[d, x - dx] where 0 <= x - dx < w, else 0 — the zero-filled
+// carry shift the continuous scan applies at that row; chains that enter a
+// diagonal through the side column start from zeros, as in K7, because their
+// predecessor lies outside the image in the continuous scan too. The chain
+// that ends on the exit row at column x writes its last L to carry_out[:, x]
+// (exactly one chain ends on each exit-row pixel; diagonal chains that leave
+// through the side column write nothing). The step arithmetic is K7's, so a
+// split scan relayed through K10 equals one continuous K7 scan bit for bit.
+// Bound: bytes, like K7's, plus the two [D, w] f32 carries.
 //
 // K8's right view needs the costs of other columns, which other warps hold:
 // each lane offers agg(x, d) to column u = x - d of a u64 [H, W] buffer by
@@ -141,10 +157,11 @@ constexpr int SWARPS = 8;  // chains (warps) per block
 
 // ---- K7: one direction ---------------------------------------------------
 
-template <typename T, int ND>
+template <typename T, int ND, bool CARRY>
 __global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
-    const T* __restrict__ vol, const T* acc, T* out, int D, int h, int w, int dy,
-    int dx, float p1, float p2, int nchains) {
+    const T* __restrict__ vol, const T* acc, T* out, const float* __restrict__ carry_in,
+    float* __restrict__ carry_out, int D, int h, int w, int dy, int dx, float p1, float p2,
+    int nchains) {
   const int chain = blockIdx.x * SWARPS + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (chain >= nchains) return;  // the whole warp leaves together
@@ -158,6 +175,14 @@ __global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
     prev[j] = lane + 32 * j < D ? 0.f : kBig;
     c[j] = 0.f;
     a[j] = 0.f;
+  }
+  // K10: a chain that starts on the entry row continues the upstream scan
+  if (CARRY && carry_in && (dx == 0 || chain < w) && x - dx >= 0 && x - dx < w) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) prev[j] = carry_in[(size_t)d * w + x - dx];
+    }
   }
   size_t o = (size_t)y * w + x;
 #pragma unroll
@@ -196,6 +221,15 @@ __global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
       a[j] = an[j];
     }
     o = on;
+  }
+  // K10: the chain that ends on the exit row hands its last L downstream
+  if (CARRY && y + dy * (n - 1) == (dy > 0 ? h - 1 : 0)) {
+    const int xe = x + dx * (n - 1);
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) carry_out[(size_t)d * w + xe] = prev[j];
+    }
   }
 }
 
@@ -353,14 +387,23 @@ int dispatch_nd(int D, Args... args) {
   }
 }
 
+// carry_out == NULL: K7; otherwise K10 (carry_in == NULL seeds zeros)
 template <typename T, int ND>
 struct ScanLaunch {
-  static int run(const void* vol, const void* acc, void* out, int D, int h, int w, int dy,
-                 int dx, float p1, float p2, void* stream) {
+  static int run(const void* vol, const void* acc, void* out, const float* carry_in,
+                 float* carry_out, int D, int h, int w, int dy, int dx, float p1, float p2,
+                 void* stream) {
     const int nchains = dx == 0 ? w : dy == 0 ? h : w + h - 1;
-    auto kern = sgm_scan_kernel<T, ND>;
-    STEPTH_LAUNCH(kern, (nchains + SWARPS - 1) / SWARPS, SWARPS * 32, 0, stream,
-                  (const T*)vol, (const T*)acc, (T*)out, D, h, w, dy, dx, p1, p2, nchains);
+    const int blocks = (nchains + SWARPS - 1) / SWARPS;
+    if (carry_out) {
+      auto kern = sgm_scan_kernel<T, ND, true>;
+      STEPTH_LAUNCH(kern, blocks, SWARPS * 32, 0, stream, (const T*)vol, (const T*)acc,
+                    (T*)out, carry_in, carry_out, D, h, w, dy, dx, p1, p2, nchains);
+    }
+    auto kern = sgm_scan_kernel<T, ND, false>;
+    STEPTH_LAUNCH(kern, blocks, SWARPS * 32, 0, stream, (const T*)vol, (const T*)acc,
+                  (T*)out, (const float*)nullptr, (float*)nullptr, D, h, w, dy, dx, p1, p2,
+                  nchains);
   }
 };
 
@@ -404,10 +447,28 @@ extern "C" int stepth_sgm_scan(const void* vol, const void* acc, void* out, int 
                                int h, int w, int dy, int dx, float p1, float p2,
                                void* stream) {
   if (bf16) {
-    return dispatch_nd<ScanLaunch, __nv_bfloat16>(D, vol, acc, out, D, h, w, dy, dx, p1,
-                                                   p2, stream);
+    return dispatch_nd<ScanLaunch, __nv_bfloat16>(D, vol, acc, out, (const float*)nullptr,
+                                                   (float*)nullptr, D, h, w, dy, dx, p1, p2,
+                                                   stream);
   }
-  return dispatch_nd<ScanLaunch, float>(D, vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+  return dispatch_nd<ScanLaunch, float>(D, vol, acc, out, (const float*)nullptr,
+                                        (float*)nullptr, D, h, w, dy, dx, p1, p2, stream);
+}
+
+// K10: a vertical or diagonal scan (dy = +-1) of one row shard, seeded from
+// carry_in (f32 [D, w]; NULL: zeros) and writing its final carry to
+// carry_out (f32 [D, w], not NULL). acc and out as in stepth_sgm_scan.
+extern "C" int stepth_sgm_scan_carry(const void* vol, const void* acc, void* out,
+                                     const float* carry_in, float* carry_out, int bf16,
+                                     int D, int h, int w, int dy, int dx, float p1, float p2,
+                                     void* stream) {
+  if (dy == 0 || !carry_out) return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    return dispatch_nd<ScanLaunch, __nv_bfloat16>(D, vol, acc, out, carry_in, carry_out, D,
+                                                   h, w, dy, dx, p1, p2, stream);
+  }
+  return dispatch_nd<ScanLaunch, float>(D, vol, acc, out, carry_in, carry_out, D, h, w, dy,
+                                        dx, p1, p2, stream);
 }
 
 // `right` must hold all ones (u64 max) on entry.

@@ -32,17 +32,28 @@ class MatchResult(NamedTuple):
     cost: torch.Tensor  # f32[H, W] winning aggregated cost (diagnostics)
 
 
+def default_device(device=None) -> torch.device:
+    """``device``, or the card (``"cuda"``) when it is None. Entry points run
+    on the card unless the caller names another device: with no CUDA device
+    this raises instead of running on the CPU (``device="cpu"`` asks for
+    it)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise ValueError("array input runs on device='cuda' by default, and no CUDA device "
+                         "is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def to_tensor(x, device=None) -> torch.Tensor:
     """``x`` as a tensor. A tensor keeps its device (``device``, if given,
-    must agree); an array needs an explicit ``device``, so that nothing lands
-    on a default device by accident."""
+    must agree); an array goes to ``device``, by default the card
+    (:func:`default_device`)."""
     if isinstance(x, torch.Tensor):
         if device is not None and x.device != torch.device(device):
             raise ValueError(f"tensor on {x.device}, but device={device!r}")
         return x
-    if device is None:
-        raise ValueError("array input needs an explicit device= (e.g. 'cuda')")
-    return torch.as_tensor(np.asarray(x), device=device)
+    return torch.as_tensor(np.asarray(x), device=default_device(device))
 
 
 def grayscale(rgb, device=None) -> torch.Tensor:

@@ -241,7 +241,8 @@ def match_pair_fused(left, right, cfg: MatchConfig = MatchConfig(), tile_rows: i
     """The exhaustive matcher with its epilogue (twin of
     ``match_pair_pallas``, the ``pallas`` backend): K1 (+ K4 with
     ``cfg.lr_threshold``), then the occlusion fill K5 and the median K3.
-    ``left``/``right``: gray or RGB tensors, or arrays with a ``device``."""
+    ``left``/``right``: gray or RGB tensors, or arrays (on ``device``, the card
+    by default)."""
     return _match_pair(left, right, cfg, tile_rows, device, raw_match,
                        fused_post.fill_invalid_fused, fused_post.median3_fused)
 

@@ -472,7 +472,7 @@ def match_hierarchical_fused(
     ``final_radius``/``final_windows``, and with ``lr_check`` also returns
     the right view), then with ``lr_check`` K4 (``D = coarsest << (levels −
     1)``) and K5, and K3. ``left``/``right``: gray [H, W] or RGB [H, W, 3]
-    tensors, or arrays with an explicit ``device``."""
+    tensors, or arrays (on ``device``, the card by default)."""
     return _match_hierarchical(FUSED, left, right, cfg, pyr, tile_rows, lr_check,
                                coarse_backend, device, sgm)
 

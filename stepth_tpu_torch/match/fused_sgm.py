@@ -1,4 +1,4 @@
-"""The semi-global matching pipeline on kernels K6–K9, each with its plain
+"""The semi-global matching pipeline on kernels K6–K10, each with its plain
 version (twin of ``stepth_tpu/match/pallas_sgm.py``, the ``sgm-pallas``
 backend).
 
@@ -20,6 +20,11 @@ backend).
 - K9 :func:`wta_from_volume`: the same WTA from a stored volume, then K4 for
   the LR check when ``cfg.lr_threshold`` is set (as K1 does: a block cannot
   see other columns' right view).
+- K10 :func:`scan_direction_carry`: K7 over the rows of one row shard,
+  seeded from the upstream shard's final carry ``[D, W]`` and returning its
+  own — the relay primitive of the sharded ``sgm-pallas`` path
+  (``parallel/sgm_pallas_sharded.py``). A split scan relayed through it
+  equals one continuous K7 scan bit for bit.
 
 :func:`match_pair_sgm_fused` keeps the reference's rule of which path runs:
 with 4 or 8 directions and ``D ≤ 128``, K7 for every direction but the last
@@ -65,6 +70,8 @@ K8 = kernels.Kernel("K8 sgm_scan_wta", "stepth_sgm_scan_wta",
 K9 = kernels.Kernel("K9 sgm_wta", "stepth_sgm_wta",
                     [PTR, INT] + [PTR] * 4 + [INT] * 4 + [FLOAT],
                     source=_SRC, replaces=f"{_REF}:581")
+K10 = kernels.Kernel("K10 sgm_scan_carry", "stepth_sgm_scan_carry",
+                     [PTR] * 5 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:398")
 
 _VOLUME_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 _MAX_D = 256  # eight path costs per lane of a scan warp
@@ -143,30 +150,39 @@ def aggregated_volume(lg, rg, cfg: MatchConfig, dtype=torch.float32, g_row0: int
 
 
 def _plain_steps(vol: torch.Tensor, p1: float, p2: float, axis: int, reverse: bool,
-                 shift: int):
+                 shift: int, carry0: Optional[torch.Tensor] = None):
     """The plain scan: ``(s, L [D, T] f32)`` at each position ``s`` along
     ``axis`` of ``vol`` [D, H, W], in scan order, by ``sgm.dir_step`` on a
-    ``[T, D]`` carry."""
+    ``[T, D]`` carry that starts from ``carry0`` [D, T] (zeros when None)."""
     n = vol.shape[axis]
-    carry = torch.zeros((vol.shape[3 - axis], vol.shape[0]), dtype=torch.float32,
-                        device=vol.device)
+    if carry0 is None:
+        carry = torch.zeros((vol.shape[3 - axis], vol.shape[0]), dtype=torch.float32,
+                            device=vol.device)
+    else:
+        carry = carry0.to(torch.float32).T
     for s in (range(n - 1, -1, -1) if reverse else range(n)):
         c = vol.select(axis, s).to(torch.float32).T
         carry = sgm_mod.dir_step(carry, c, shift, p1, p2)
         yield s, carry.T
 
 
+def _scan_plain(vol, acc, p1, p2, axis, reverse, shift, carry0=None):
+    """``(acc + L, the last L [D, T])``, the sum in ``vol``'s type written
+    into ``acc`` in place."""
+    _step(axis, reverse, shift)
+    out = torch.empty_like(vol) if acc is None else acc
+    L = None
+    for s, L in _plain_steps(vol, p1, p2, axis, reverse, shift, carry0):
+        v = L if acc is None else acc.select(axis, s).to(torch.float32) + L
+        out.select(axis, s).copy_(v.to(vol.dtype))
+    return out, L
+
+
 def scan_direction_plain(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
                          shift: int = 0) -> torch.Tensor:
     """K7's plain version: ``acc + L`` (``L`` when ``acc`` is None) in
     ``vol``'s type, written into ``acc`` in place."""
-    _step(axis, reverse, shift)
-    out = torch.empty_like(vol) if acc is None else acc
-    for s, L in _plain_steps(vol, p1, p2, axis, reverse, shift):
-        if acc is not None:
-            L = acc.select(axis, s).to(torch.float32) + L
-        out.select(axis, s).copy_(L.to(vol.dtype))
-    return out
+    return _scan_plain(vol, acc, p1, p2, axis, reverse, shift)[0]
 
 
 def _step(axis: int, reverse: bool, shift: int):
@@ -176,6 +192,13 @@ def _step(axis: int, reverse: bool, shift: int):
         raise ValueError(f"scan: need axis 1 or 2 and shift in -1..1, got {axis}, {shift}")
     along = -1 if reverse else 1
     return (along, shift) if axis == 1 else (shift, along)
+
+
+def _check_acc(name: str, acc: Optional[torch.Tensor], vol: torch.Tensor) -> None:
+    if acc is not None:
+        kernels.check_cuda_tensor(name, acc, vol.dtype, 3)
+        if acc.shape != vol.shape or acc.device != vol.device:
+            raise ValueError(f"{name} {tuple(acc.shape)} != volume {tuple(vol.shape)}")
 
 
 def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
@@ -188,16 +211,54 @@ def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
         return scan_direction_plain(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     dy, dx = _step(axis, reverse, shift)
     _check_volume("scan volume", vol)
-    if acc is not None:
-        kernels.check_cuda_tensor("scan acc", acc, vol.dtype, 3)
-        if acc.shape != vol.shape or acc.device != vol.device:
-            raise ValueError(f"scan: acc {tuple(acc.shape)} != volume {tuple(vol.shape)}")
+    _check_acc("scan acc", acc, vol)
     D, h, w = vol.shape
     out = torch.empty_like(vol) if acc is None else acc
     K7.launch(vol.device, vol.data_ptr(), None if acc is None else acc.data_ptr(),
               out.data_ptr(), int(vol.dtype == torch.bfloat16), D, h, w, dy, dx,
               float(p1), float(p2))
     return out
+
+
+# ---- K10 -----------------------------------------------------------------
+
+
+def scan_direction_carry_plain(vol, acc, carry0, p1: float, p2: float, *, reverse: bool,
+                               shift: int = 0):
+    """K10's plain version: K7's plain scan down (``reverse``: up) the rows
+    of ``vol`` [D, S, T], started from ``carry0`` [D, T] (zeros when None)
+    instead of zeros. Returns ``(acc + L, final_carry)``; the carry is
+    f32 [D, T], the last row's ``L``."""
+    out, L = _scan_plain(vol, acc, p1, p2, 1, reverse, shift, carry0)
+    return out, L.contiguous()
+
+
+def scan_direction_carry(vol, acc, carry0, p1: float, p2: float, *, reverse: bool,
+                         shift: int = 0):
+    """One vertical (``shift=0``) or diagonal (``shift=±1``) SGM direction
+    over the rows of a row shard ``vol`` [D, S, T], seeded with the upstream
+    shard's final carry ``carry0`` f32 [D, T] (None: zeros, a fresh start);
+    twin of ``scan_direction_carry``. Returns ``(acc + L, final_carry)``,
+    updating ``acc`` in place. K10 on CUDA tensors, the plain version on CPU
+    tensors."""
+    if vol.device.type == "cpu":
+        return scan_direction_carry_plain(vol, acc, carry0, p1, p2, reverse=reverse,
+                                          shift=shift)
+    dy, dx = _step(1, reverse, shift)
+    _check_volume("carry scan volume", vol)
+    _check_acc("carry scan acc", acc, vol)
+    D, h, w = vol.shape
+    if carry0 is not None:
+        kernels.check_cuda_tensor("carry0", carry0, torch.float32, 2)
+        if carry0.shape != (D, w) or carry0.device != vol.device:
+            raise ValueError(f"carry0 {tuple(carry0.shape)} on {carry0.device}: want "
+                             f"{(D, w)} on {vol.device}")
+    out = torch.empty_like(vol) if acc is None else acc
+    carry = torch.empty((D, w), dtype=torch.float32, device=vol.device)
+    K10.launch(vol.device, vol.data_ptr(), None if acc is None else acc.data_ptr(),
+               out.data_ptr(), None if carry0 is None else carry0.data_ptr(), carry.data_ptr(),
+               int(vol.dtype == torch.bfloat16), D, h, w, dy, dx, float(p1), float(p2))
+    return out, carry
 
 
 def _aggregate(scan_fn, vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
@@ -310,14 +371,16 @@ class _Path(NamedTuple):
     lr: Callable
     fill: Callable
     median: Callable
+    scan_carry: Callable  # the sharded relay's
 
 
 FUSED = _Path(aggregated_volume, scan_direction, scan_wta_direction, wta_from_volume,
               fused_post.lr_consistency_fused, fused_post.fill_invalid_fused,
-              fused_post.median3_fused)
+              fused_post.median3_fused, scan_direction_carry)
 PLAIN = _Path(aggregated_volume_plain, scan_direction_plain, scan_wta_direction_plain,
               wta_from_volume_plain, fused_post.lr_consistency_plain,
-              fused_post.fill_invalid_plain, fused_post.median3_plain)
+              fused_post.fill_invalid_plain, fused_post.median3_plain,
+              scan_direction_carry_plain)
 
 
 def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
@@ -351,7 +414,8 @@ def match_pair_sgm_fused(left, right, cfg: MatchConfig = MatchConfig(),
                          device=None) -> dense.MatchResult:
     """The SGM matcher on kernels K6–K9 (twin of ``match_pair_sgm_pallas``,
     the ``sgm-pallas`` backend); K4, K5 and K3 in the epilogue.
-    ``left``/``right``: gray or RGB tensors, or arrays with a ``device``.
+    ``left``/``right``: gray or RGB tensors, or arrays (on ``device``, the card
+    by default).
     ``tile_rows`` is accepted for signature parity and ignored."""
     return _match_pair_sgm(FUSED, left, right, cfg, sgm, device)
 

@@ -92,7 +92,8 @@ def match_pair_sgm(left, right, cfg: MatchConfig = MatchConfig(),
     """The full SGM matcher (the ``sgm`` backend): cost volume → box
     aggregation → semi-global path aggregation → WTA/subpixel → LR check →
     occlusion fill → median. Same contract as :func:`dense.match_pair`;
-    ``left``/``right`` are tensors, or arrays with an explicit ``device``."""
+    ``left``/``right`` are tensors, or arrays (on ``device``, the card by
+    default)."""
     lg = dense.grayscale(left, device)
     rg = dense.grayscale(right, device)
     vol = dense.box_aggregate(dense.cost_volume(lg, rg, cfg), cfg.window)

@@ -9,8 +9,9 @@ them (K1, K2, K3, and K4, K5 with ``lr_check``), ``"sgm"`` the plain-torch
 semi-global matcher, ``"sgm-pallas"`` the same on kernels K6–K9 (with K4,
 K5, K3), and ``"hierarchical-sgm"`` the pyramid with the SGM matcher at the
 coarsest level. :meth:`StereoModel.batched` and :meth:`StereoModel.video`
-are Python loops over frames. Every other backend names the ROADMAP item
-that ports it.
+are Python loops over frames; :meth:`StereoModel.sharded` runs the six
+backends row-tile-sharded over a device mesh (``parallel/``). Every other
+backend names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class StereoModel:
 
     def __call__(self, left, right, device=None) -> dense.MatchResult:
         """Match a rectified pair: gray [H, W] or RGB [H, W, 3] tensors (the
-        device is theirs), or arrays with an explicit ``device``."""
+        device is theirs), or arrays (on ``device``, by default ``"cuda"``)."""
         if self.backend == "dense":
             return dense.match_pair(left, right, self.match, device)
         if self.backend == "pallas":
@@ -123,6 +124,35 @@ class StereoModel:
             )
 
         return run
+
+    def sharded(self, mesh):
+        """A callable running this model row-tile-sharded over ``mesh``
+        (``parallel.mesh.make_mesh``) on a pair of tensors or arrays; the
+        result lands on the mesh's first device. ``sgm-pallas`` takes the
+        ``exact``/``warmup``/``halo`` keywords of
+        ``match_pair_sgm_pallas_sharded``. Unlike the reference's, the
+        hierarchical backends keep ``lr_check``."""
+        from stepth_tpu_torch.parallel import sharded
+
+        if self.backend == "dense":
+            return lambda l, r: sharded.match_pair_sharded(l, r, self.match, mesh)
+        if self.backend == "pallas":
+            return lambda l, r: sharded.match_pair_sharded_pallas(l, r, self.match, mesh)
+        if self.backend in ("hierarchical-pallas", "hierarchical-sgm"):
+            return lambda l, r: sharded.match_hierarchical_sharded(
+                l, r, self.match, self.pyramid, mesh, coarse_backend=self._coarse(),
+                sgm=self.sgm, lr_check=self.lr_check)
+        if self.backend == "sgm":
+            from stepth_tpu_torch.parallel import sgm_sharded
+
+            return lambda l, r: sgm_sharded.match_pair_sgm_sharded(l, r, self.match, self.sgm,
+                                                                   mesh)
+        if self.backend == "sgm-pallas":
+            from stepth_tpu_torch.parallel import sgm_pallas_sharded
+
+            return lambda l, r, **kw: sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
+                l, r, self.match, self.sgm, mesh, **kw)
+        raise NotImplementedError(f"sharded() unsupported for {self.backend}")
 
 
 def flagship(num_disparities: int = 128) -> StereoModel:

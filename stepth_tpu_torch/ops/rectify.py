@@ -8,8 +8,8 @@ pixel → source pixel) that also folds in the lens distortion, so a view is
 undistorted and rectified by one bilinear remap. Maps are made once per
 rig; :func:`rectify_pair` warps every frame.
 
-Everything is f32 on the device of the tensors given (an array input needs
-``device=``). :func:`remap_bilinear` is the plain version of kernel K11
+Everything is f32 on the device of the tensors given (arrays go to
+``device=``, the card by default). :func:`remap_bilinear` is the plain version of kernel K11
 (``ops.fused_remap``): the reference's ``map_coordinates(order=1,
 mode="nearest")`` masked by the raw map's in-bounds test. The 3×3
 products are written as broadcast sums, so no matrix product (and no TF32
@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from stepth_tpu_torch.match.dense import to_tensor
+from stepth_tpu_torch.match.dense import default_device, to_tensor
 
 
 class RectifyMaps(NamedTuple):
@@ -97,7 +97,8 @@ def rectify_maps(K1, K2, R, T, image_shape: Tuple[int, int], K_new=None, dist1=N
     the rectified output; ``K_new``: shared rectified intrinsics (default K1
     with zero skew); ``dist1``/``dist2``: optional lens distortion (k1, k2,
     p1, p2[, k3]) per source camera, folded into the maps. The maps live on
-    the device of the tensor inputs, or on ``device`` for arrays.
+    the device of the tensor inputs, or on ``device`` (the card by default)
+    for arrays.
 
     After ``remap_bilinear(left, maps.map_left)`` and (right,
     ``map_right``), a world point lies on the same row in both outputs, at
@@ -141,12 +142,12 @@ def maps_from_arrays(map_left, map_right, focal, baseline, K_new, device=None) -
     """:class:`RectifyMaps` from arrays, e.g. the fields of the JAX package's
     ``RectifyMaps`` (``maps_from_arrays(*(np.asarray(f) for f in ref_maps),
     device="cuda")``): a rig calibrated and mapped once elsewhere is carried
-    across unchanged."""
+    across unchanged. ``device`` defaults to the card (``"cuda"``)."""
+    device = default_device(device)
+
     def f32(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)
 
-    if device is None:
-        raise ValueError("maps_from_arrays needs an explicit device= (e.g. 'cuda')")
     return RectifyMaps(f32(map_left).contiguous(), f32(map_right).contiguous(),
                        f32(focal), f32(baseline), f32(K_new))
 

@@ -1,0 +1,132 @@
+"""Row-tile-sharded semi-global matching on the kernels (twin of
+``stepth_tpu/parallel/sgm_pallas_sharded.py``, ``sgm-pallas`` sharded).
+
+Each shard builds its volume with K6 on its rows extended by an exchanged
+halo (``g_row0``/``g_h`` mask the rows outside the image), then:
+
+* ``exact=True``: the horizontal directions run shard-local (K7 along the
+  columns); each vertical and diagonal direction is one K10 launch per
+  shard in owner order — shards 0…n−1 for ↓y, ↘, ↙ and n−1…0 for ↑y, ↗, ↖
+  — each seeded with the upstream shard's final carry (f32 ``[D, W]``),
+  which then moves to the next owner's device. Only the owner runs a round:
+  the reference's SPMD rounds, where non-owners scan a garbage seed and are
+  masked out, are the same arithmetic. The directions are summed in the
+  unsharded order, so the output equals the unsharded ``sgm-pallas``
+  backend bit for bit, at 2, 4 and 8 directions (the port never transposes
+  a volume). The scans run in f32 whatever ``volume_dtype`` says, as the
+  reference's do: a bf16 volume is rounded to bf16, then scanned in f32, so
+  bf16 exact mode is not the unsharded bf16 output.
+* ``exact=False``: ``warmup`` (rounded up to 8) more halo rows warm the
+  scans, zeroed outside the image so true borders start fresh; every
+  direction runs shard-local with K7 in the volume's type. Approximate at
+  interior seams.
+
+Then each shard runs K9 (with K4 under ``cfg.lr_threshold``) and K5 on its
+own rows, and K3 over a one-row disparity halo. ``plain=True`` runs every
+kernel's plain version instead. Results land on the mesh's first device.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from stepth_tpu_torch.config import MatchConfig, SGMConfig
+from stepth_tpu_torch.match import dense, fused_dense, fused_sgm
+from stepth_tpu_torch.match import sgm as sgm_mod
+from stepth_tpu_torch.match.fused_refine import _round_up
+from stepth_tpu_torch.parallel.mesh import Mesh
+from stepth_tpu_torch.parallel.sharded import (
+    _check_halo, _gray_blocks, _median_blocks, _mesh, _result, _with_halo, required_halo,
+)
+
+
+def _relay_dir(path, vols, accs, *, reverse: bool, shift: int, p1: float, p2: float):
+    """One relayed direction: a K10 launch per shard in owner order, each
+    onto its shard's accumulator, the final carry moved to the next owner."""
+    carry = None
+    for i in (range(len(vols) - 1, -1, -1) if reverse else range(len(vols))):
+        if carry is not None:
+            carry = carry.to(vols[i].device, non_blocking=True)
+        accs[i], carry = path.scan_carry(vols[i], accs[i], carry, p1, p2, reverse=reverse,
+                                         shift=shift)
+
+
+def _exact_agg(path, vols, sgm: SGMConfig, p1: float, p2: float):
+    """The direction sum of exact mode, in the unsharded order: the
+    horizontals shard-local, every other direction relayed."""
+    accs = [None] * len(vols)
+    for axis, reverse, shift in fused_sgm.directions(sgm.directions):
+        if axis == 2:
+            accs = [path.scan(v, a, p1, p2, axis=2, reverse=reverse, shift=shift)
+                    for v, a in zip(vols, accs)]
+        else:
+            _relay_dir(path, vols, accs, reverse=reverse, shift=shift, p1=p1, p2=p2)
+    return accs
+
+
+def _wta_epilogue(path, aggs, cfg: MatchConfig):
+    """WTA, uniqueness and LR (K9, K4), the fill (K5) on each shard's rows,
+    then the median (K3) over a one-row disparity halo."""
+    disps, valids, cbests = [], [], []
+    for agg in aggs:
+        disp, _, cbest, valid_f = path.wta(agg, cfg)
+        valid = valid_f > 0.5
+        disps.append(path.fill(disp, valid))
+        valids.append(valid)
+        cbests.append(cbest)
+    return _median_blocks(path.median, disps), valids, cbests
+
+
+def match_pair_sgm_pallas_sharded(
+    left,
+    right,
+    cfg: MatchConfig = MatchConfig(),
+    sgm: SGMConfig = SGMConfig(),
+    mesh: Optional[Mesh] = None,
+    exact: bool = True,
+    warmup: int = 32,
+    halo: Optional[int] = None,
+    *,
+    plain: bool = False,
+) -> dense.MatchResult:
+    """Row-tile-sharded twin of ``fused_sgm.match_pair_sgm_fused`` over
+    ``mesh``'s ``tile`` axis (see the module docstring for the two modes).
+    Shard heights must be multiples of 8 and at least ``halo`` (+ the
+    rounded ``warmup`` in windowed mode) rows."""
+    path = fused_sgm.PLAIN if plain else fused_sgm.FUSED
+    mesh = _mesh(mesh)
+    halo = required_halo(cfg) if halo is None else halo
+    fused_dense._check_cfg(cfg)
+    fused_sgm.directions(sgm.directions)  # raises on a bad count
+    dtype = fused_sgm.volume_dtype(sgm)
+    devs = mesh.devices[0]
+    h = left.shape[0]
+    if h % len(devs) != 0:
+        raise ValueError(f"H={h} not divisible by tile axis {len(devs)}")
+    th = h // len(devs)
+    if th % 8 != 0:
+        raise ValueError(f"tile height {th} must be a multiple of 8")
+    wu = 0 if exact else _round_up(int(warmup), 8)
+    _check_halo(th, halo + wu, "halo+warmup")
+    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
+    ext, rows = halo + wu, th + 2 * wu
+    vols = []
+    for i, (lg, rg) in enumerate(zip(_with_halo(lgs, ext, "replicate"),
+                                     _with_halo(rgs, ext, "replicate"))):
+        vol = path.volume(lg, rg, cfg, dtype, i * th - ext, h)[:, halo:halo + rows]
+        if wu:
+            # K6's global row mask already zeroes out-of-image rows' box
+            # sums; re-zero the sliced rows too, so warm-up scans cross true
+            # borders with an all-zero carry
+            gidx = i * th - wu + torch.arange(rows, device=vol.device)
+            vol = vol * ((gidx >= 0) & (gidx < h))[None, :, None].to(vol.dtype)
+        vols.append(vol.contiguous())
+    p1, p2 = sgm_mod.penalties(cfg, sgm)
+    if exact:
+        aggs = _exact_agg(path, [v.to(torch.float32) for v in vols], sgm, p1, p2)
+    else:
+        aggs = [fused_sgm._aggregate(path.scan, v, sgm, p1, p2)[:, wu:wu + th].contiguous()
+                for v in vols]
+    return _result(mesh, *_wta_epilogue(path, aggs, cfg))

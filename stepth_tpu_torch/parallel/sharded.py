@@ -1,0 +1,455 @@
+"""Row-tile-sharded matching over a device mesh, with halo exchange between
+shards (twin of ``stepth_tpu/parallel/sharded.py``).
+
+Image rows split evenly over the mesh's ``tile`` devices; pairs of a batch
+over its ``data`` rows. Window aggregation, census support and the median
+need neighbour rows, which each shard takes from its neighbours as a halo
+(:func:`halo_exchange_rows`); at the true image borders the halo repeats the
+edge row (``edge="replicate"``, the unsharded ``pad(mode="edge")``), and
+costs of rows outside the image are zeroed (the unsharded zero-pad
+clipping), so every path here equals its unsharded twin bit for bit on
+integer-valued inputs. The shards run one after another in a Python loop
+(:mod:`stepth_tpu_torch.parallel.mesh`); each shard's kernels launch on its
+own device, and halos move with ``.to(device, non_blocking=True)``.
+
+The kernel paths (``match_pair_sharded_pallas``, the hierarchical, batched
+and temporal ones) take ``plain=True`` to run every kernel's plain version
+instead, on any device. Results are gathered on the mesh's first device.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
+from stepth_tpu_torch.match import dense, fused_dense, fused_refine, pyramid
+from stepth_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+Blocks = List[torch.Tensor]
+
+
+def required_halo(cfg: MatchConfig) -> int:
+    """Rows of neighbour context one tile needs: box window radius + census
+    support radius (census only) + 1 for the 3×3 median."""
+    r = cfg.window // 2
+    if cfg.cost == "census":
+        r += cfg.census_window // 2
+    return r + 1
+
+
+def _mesh(mesh: Optional[Mesh]) -> Mesh:
+    return make_mesh() if mesh is None else mesh
+
+
+def _on(x, device) -> torch.Tensor:
+    """A tensor or array as a tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+
+def scatter_rows(x, devices: Sequence[torch.device]) -> Blocks:
+    """Split a whole image (tensor or array) ``[H, ...]`` into equal row
+    blocks, block ``i`` contiguous on ``devices[i]``."""
+    n, h = len(devices), x.shape[0]
+    if h % n != 0:
+        raise ValueError(f"H={h} not divisible by tile axis {n}")
+    th = h // n
+    return [_on(x[i * th:(i + 1) * th], d).contiguous() for i, d in enumerate(devices)]
+
+
+def gather_rows(blocks: Blocks, device) -> torch.Tensor:
+    """The row blocks concatenated on ``device``."""
+    return torch.cat([b.to(device) for b in blocks])
+
+
+def _gray_blocks(x, devices) -> Blocks:
+    return [dense.grayscale(b) for b in scatter_rows(x, devices)]
+
+
+def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero"):
+    """``(top, bottom)`` halo slabs ``[halo, ...]`` of each shard, on its
+    device: the last ``halo`` rows of the shard above and the first of the
+    shard below. The first and last shards have no neighbour there:
+    ``edge="zero"`` gives zeros, ``edge="replicate"`` repeats the shard's
+    own boundary row."""
+    if edge not in ("zero", "replicate"):
+        raise ValueError(f"edge must be 'zero' or 'replicate', got {edge!r}")
+    n = len(blocks)
+    out = []
+    for i, x in enumerate(blocks):
+        rows = (halo,) + tuple(x.shape[1:])
+        if i > 0:
+            top = blocks[i - 1][-halo:].to(x.device, non_blocking=True)
+        elif edge == "replicate":
+            top = x[:1].expand(rows)
+        else:
+            top = x.new_zeros(rows)
+        if i < n - 1:
+            bot = blocks[i + 1][:halo].to(x.device, non_blocking=True)
+        elif edge == "replicate":
+            bot = x[-1:].expand(rows)
+        else:
+            bot = x.new_zeros(rows)
+        out.append((top, bot))
+    return out
+
+
+def _with_halo(blocks: Blocks, halo: int, edge: str) -> Blocks:
+    """Each shard's rows extended by ``halo`` exchanged rows on both sides."""
+    return [torch.cat([top, x, bot])
+            for x, (top, bot) in zip(blocks, halo_exchange_rows(blocks, halo, edge))]
+
+
+def _median_blocks(median_fn, disps: Blocks) -> Blocks:
+    """The 3×3 median of each shard's rows over a one-row disparity halo,
+    edge-replicated at the image borders."""
+    return [median_fn(d)[1:-1] for d in _with_halo(disps, 1, "replicate")]
+
+
+def _result(mesh: Mesh, disps: Blocks, valids: Blocks, cbests: Optional[Blocks] = None):
+    disp = gather_rows(disps, mesh.first)
+    cost = torch.zeros_like(disp) if cbests is None else gather_rows(cbests, mesh.first)
+    return dense.MatchResult(disparity=disp, valid=gather_rows(valids, mesh.first), cost=cost)
+
+
+# ---- the dense (XLA) matcher ---------------------------------------------
+
+
+def _match_tiles(lgs: Blocks, rgs: Blocks, cfg: MatchConfig, halo: int, h_total: int):
+    """Per-shard dense match of gray row blocks on rows extended by ``halo``
+    (the reference's ``_match_tile``). Returns per-shard disparity, valid
+    and cost blocks."""
+    th = lgs[0].shape[0]
+    disps, valids, cbests = [], [], []
+    ext = zip(_with_halo(lgs, halo, "replicate"), _with_halo(rgs, halo, "replicate"))
+    for i, (lg, rg) in enumerate(ext):
+        vol = dense.cost_volume(lg, rg, cfg)  # [th + 2·halo, W, D]
+        # zero the cost of rows outside the image: box sums then match the
+        # unsharded zero-pad clipping exactly
+        gidx = i * th - halo + torch.arange(th + 2 * halo, device=lg.device)
+        in_img = (gidx >= 0) & (gidx < h_total)
+        vol = vol * in_img[:, None, None].to(vol.dtype)
+        agg = dense.box_aggregate(vol, cfg.window)[halo:halo + th]
+        disp, valid, cbest = dense.wta(agg, cfg.subpixel, cfg.uniqueness)
+        if cfg.lr_threshold is not None:
+            disp_r = dense.right_disparity_from_volume(agg)
+            valid = valid & dense.lr_consistency(disp, disp_r, cfg.lr_threshold)
+        disps.append(dense.fill_invalid(disp, valid))
+        valids.append(valid)
+        cbests.append(cbest)
+    return _median_blocks(dense.median3, disps), valids, cbests
+
+
+def _check_halo(th: int, halo: int, what: str = "halo") -> None:
+    if th < halo:
+        raise ValueError(f"tile height {th} < {what} {halo}")
+
+
+def match_pair_sharded(left, right, cfg: MatchConfig = MatchConfig(),
+                       mesh: Optional[Mesh] = None, halo: Optional[int] = None
+                       ) -> dense.MatchResult:
+    """Row-tile-sharded dense match (the ``dense`` backend) of one rectified
+    pair over ``mesh``'s ``tile`` axis; equals ``dense.match_pair``."""
+    mesh = _mesh(mesh)
+    halo = required_halo(cfg) if halo is None else halo
+    devs = mesh.devices[0]
+    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
+    _check_halo(lgs[0].shape[0], halo)
+    return _result(mesh, *_match_tiles(lgs, rgs, cfg, halo, left.shape[0]))
+
+
+def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
+                        mesh: Optional[Mesh] = None, halo: Optional[int] = None
+                        ) -> torch.Tensor:
+    """Batched pairs ``[B, H, W(, C)]``: the batch shards over ``data``, the
+    rows of each pair over that data row's ``tile`` devices. Returns the
+    disparity f32[B, H, W] on the mesh's first device."""
+    mesh = _mesh(mesh)
+    halo = required_halo(cfg) if halo is None else halo
+    b, h = lefts.shape[0], lefts.shape[1]
+    nd, nt = mesh.shape["data"], mesh.shape["tile"]
+    if b % nd != 0:
+        raise ValueError(f"B={b} not divisible by data axis {nd}")
+    if h % nt != 0:
+        raise ValueError(f"H={h} not divisible by tile axis {nt}")
+    out = []
+    for k in range(b):
+        devs = mesh.devices[k // (b // nd)]
+        disps, _, _ = _match_tiles(_gray_blocks(lefts[k], devs), _gray_blocks(rights[k], devs),
+                                   cfg, halo, h)
+        out.append(gather_rows(disps, mesh.first))
+    return torch.stack(out)
+
+
+# ---- the exhaustive matcher on K1 ----------------------------------------
+
+
+def match_pair_sharded_pallas(left, right, cfg: MatchConfig = MatchConfig(),
+                              mesh: Optional[Mesh] = None, halo: Optional[int] = None,
+                              tile_rows: int = 32, *, plain: bool = False
+                              ) -> dense.MatchResult:
+    """Row-tile sharding of the ``pallas`` backend: each shard runs K1 (+ K4
+    with ``cfg.lr_threshold``) on its halo-extended rows, masking costs by
+    global rows (``g_row0``/``g_h``), then the occlusion fill and the median
+    in torch (``dense.fill_invalid``/``dense.median3``, as the reference).
+    Equals ``fused_dense.match_pair_fused``."""
+    raw = fused_dense.raw_match_plain if plain else fused_dense.raw_match
+    mesh = _mesh(mesh)
+    halo = required_halo(cfg) if halo is None else halo
+    halo = (halo + 7) // 8 * 8  # the reference's sublane-aligned halo
+    devs = mesh.devices[0]
+    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
+    th, h = lgs[0].shape[0], left.shape[0]
+    _check_halo(th, halo)
+    disps, valids, cbests = [], [], []
+    ext = zip(_with_halo(lgs, halo, "replicate"), _with_halo(rgs, halo, "replicate"))
+    for i, (lg, rg) in enumerate(ext):
+        disp, _, cbest, valid_f = raw(lg, rg, cfg, tile_rows, i * th - halo, h)
+        valid = valid_f[halo:halo + th] > 0.5
+        disps.append(dense.fill_invalid(disp[halo:halo + th], valid))
+        valids.append(valid)
+        cbests.append(cbest[halo:halo + th])
+    return _result(mesh, _median_blocks(dense.median3, disps), valids, cbests)
+
+
+# ---- the hierarchical paths ----------------------------------------------
+
+
+def _hierarchical_geometry(h: int, ntile: int, cfg: MatchConfig, pyr: PyramidConfig,
+                           tile_rows: int):
+    """``(tr, halo)``: the refine ``tile_rows`` shrunk until it divides the
+    coarsest shard height, and the per-level halo, a
+    multiple of ``tr`` so each shard-local refine tile starts at a global
+    row ≡ 0 (mod ``tr``) and plans exactly as the unsharded run's tile at
+    the same ``tile_rows``. These decide the refine plans, which are part of
+    the output contract."""
+    scale = 1 << (pyr.levels - 1)
+    if h % ntile != 0:
+        raise ValueError(f"H={h} not divisible by tile axis {ntile}")
+    th = h // ntile
+    if th % scale != 0:
+        raise ValueError(f"shard height {th} not divisible by 2^(levels-1)={scale}")
+    tr = (tile_rows + 7) // 8 * 8
+    th_coarse = th >> (pyr.levels - 1)
+    while tr > 8 and th_coarse % tr != 0:
+        tr -= 8
+    if th_coarse % tr != 0:
+        raise ValueError(f"coarsest shard height {th_coarse} not divisible by any "
+                         f"sublane-aligned tile_rows ≤ {tile_rows}")
+    need = cfg.window // 2 + 1
+    halo = -(-need // tr) * tr
+    if th // scale < halo:
+        raise ValueError(f"coarsest shard height {th // scale} < halo {halo}")
+    return tr, halo
+
+
+def _refine_blocks(path, lgs, rgs, priors, cfg, radius, max_base, tr, halo, h, lr,
+                   max_windows):
+    """One refine level on every shard's halo-extended rows (image and
+    prior). Returns the disparity blocks and, with ``lr``, the right view's."""
+    th = lgs[0].shape[0]
+    disps, disp_rs = [], []
+    ext = zip(*(_with_halo(b, halo, "replicate") for b in (lgs, rgs, priors)))
+    for i, (lg, rg, pr) in enumerate(ext):
+        out = path.refine(lg, rg, pr, cfg, radius, max_base, tr, i * th - halo, h, lr=lr,
+                          max_windows=max_windows)
+        d, dr = out if lr else (out, None)
+        disps.append(d[halo:halo + th])
+        if lr:
+            disp_rs.append(dr[halo:halo + th])
+    return disps, (disp_rs if lr else None)
+
+
+def _post_blocks(path, disps, disp_rs, cfg: MatchConfig, max_base: int, lr_check: bool):
+    """The epilogue on every shard: LR check (``D = max_base``) and
+    occlusion fill with ``lr_check``, then the median."""
+    if lr_check:
+        thr = 1.0 if cfg.lr_threshold is None else float(cfg.lr_threshold)
+        valids = [path.lr(d, dr, thr, max_base) for d, dr in zip(disps, disp_rs)]
+        disps = [path.fill(d, v) for d, v in zip(disps, valids)]
+    else:
+        valids = [d >= 0 for d in disps]
+    return _median_blocks(path.median, disps), valids
+
+
+def _hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, sgm,
+                         lr_check):
+    th = lgs[0].shape[0]
+    lefts, rights = [lgs], [rgs]
+    for _ in range(pyr.levels - 1):
+        lefts.append([pyramid.downsample2(b) for b in lefts[-1]])
+        rights.append([pyramid.downsample2(b) for b in rights[-1]])
+    coarse_cfg = MatchConfig(num_disparities=pyr.coarsest_disparities, window=cfg.window,
+                             cost=cfg.cost, census_window=cfg.census_window,
+                             subpixel=cfg.subpixel, lr_threshold=None)
+    lvl = pyr.levels - 1
+    th_l, h_l = th >> lvl, h >> lvl
+    if coarse_backend == "sgm":
+        # the plain-torch SGM with its exact shard-to-shard carry relay
+        from stepth_tpu_torch.parallel import sgm_sharded
+
+        disps, _, _ = sgm_sharded._sgm_tiles(
+            lefts[-1], rights[-1], cfg=coarse_cfg, sgm=SGMConfig() if sgm is None else sgm,
+            halo=required_halo(coarse_cfg), wu=0, h_total=h_l, exact=True)
+    else:
+        disps = []
+        ext = zip(_with_halo(lefts[-1], halo, "replicate"),
+                  _with_halo(rights[-1], halo, "replicate"))
+        for i, (lg, rg) in enumerate(ext):
+            d = path.match(lg, rg, coarse_cfg, min(tr, 16), i * th_l - halo, h_l)[0]
+            disps.append(d[halo:halo + th_l])
+    max_base = pyr.coarsest_disparities
+    disp_rs = None
+    for lvl in range(pyr.levels - 2, -1, -1):
+        th_l, h_l = th >> lvl, h >> lvl
+        w_l = lefts[lvl][0].shape[1]
+        priors = [pyramid.upsample2_disparity(d, th_l, w_l) for d in disps]
+        max_base *= 2
+        want_lr = lr_check and lvl == 0
+        disps, disp_rs = _refine_blocks(
+            path, lefts[lvl], rights[lvl], priors, cfg,
+            pyr.final_radius if lvl == 0 else pyr.refine_radius, max_base, tr, halo, h_l,
+            want_lr, pyr.final_windows if lvl == 0 else pyr.refine_windows)
+    return _post_blocks(path, disps, disp_rs, cfg, max_base, lr_check)
+
+
+def match_hierarchical_sharded(
+    left,
+    right,
+    cfg: MatchConfig = MatchConfig(),
+    pyr: Optional[PyramidConfig] = None,
+    mesh: Optional[Mesh] = None,
+    tile_rows: int = 32,
+    coarse_backend: str = "wta",
+    sgm: Optional[SGMConfig] = None,
+    lr_check: bool = False,
+    *,
+    plain: bool = False,
+) -> dense.MatchResult:
+    """The hierarchical matcher sharded over the mesh's ``tile`` axis: every
+    pyramid level runs its kernel on the shard's rows extended by an
+    exchanged halo, costs clipped at global rows; the 2×2 downsampling is
+    shard-local (shard heights must divide by 2^(levels−1)). At the coarsest
+    level K1 (``coarse_backend="wta"``) or, with ``"sgm"``, the plain-torch
+    SGM with its exact carry relay (:mod:`.sgm_sharded`, knobs from
+    ``sgm``); K2 at every finer level, with the right view at level 0 under
+    ``lr_check``; then K4 and K5 with ``lr_check``, and K3.
+
+    Equal to ``fused_refine.match_hierarchical_fused`` at the same
+    effective ``tile_rows`` (the shrunk one, see
+    :func:`_hierarchical_geometry`) with the WTA coarse level; with the SGM
+    coarse level it equals the reference's sharded path, whose coarse level
+    is the XLA-style SGM (it may break exact-cost ties differently from the
+    fused SGM)."""
+    path = fused_refine.PLAIN if plain else fused_refine.FUSED
+    pyr = PyramidConfig() if pyr is None else pyr
+    mesh = _mesh(mesh)
+    if coarse_backend not in ("wta", "sgm"):
+        raise ValueError(f"coarse_backend must be 'wta' or 'sgm', got {coarse_backend!r}")
+    if lr_check and pyr.levels == 1:
+        raise ValueError("lr_check needs at least one refine level")
+    devs = mesh.devices[0]
+    h = left.shape[0]
+    tr, halo = _hierarchical_geometry(h, len(devs), cfg, pyr, tile_rows)
+    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
+    return _result(mesh, *_hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo,
+                                               coarse_backend, sgm, lr_check))
+
+
+def _stack(results) -> dense.MatchResult:
+    return dense.MatchResult(*(torch.stack(field) for field in zip(*results)))
+
+
+def match_batch_hierarchical_sharded(
+    lefts,
+    rights,
+    cfg: MatchConfig = MatchConfig(),
+    pyr: Optional[PyramidConfig] = None,
+    mesh: Optional[Mesh] = None,
+    tile_rows: int = 64,
+    lr_check: bool = False,
+    coarse_backend: str = "wta",
+    sgm: Optional[SGMConfig] = None,
+    *,
+    plain: bool = False,
+) -> dense.MatchResult:
+    """Data-parallel batch of whole frames ``[B, H, W(, C)]``: frame ``k``
+    runs the unsharded hierarchical matcher on the first device of data row
+    ``k // (B / data)``; no halos, no relay. Each frame equals
+    ``fused_refine.match_hierarchical_fused``. Stacked results on the mesh's
+    first device."""
+    match = (fused_refine.match_hierarchical_plain if plain
+             else fused_refine.match_hierarchical_fused)
+    pyr = PyramidConfig() if pyr is None else pyr
+    mesh = _mesh(mesh)
+    b, nd = lefts.shape[0], mesh.shape["data"]
+    if b % nd != 0:
+        raise ValueError(f"B={b} not divisible by data axis {nd}")
+    frames = []
+    for k in range(b):
+        dev = mesh.devices[k // (b // nd)][0]
+        res = match(_on(lefts[k], dev), _on(rights[k], dev), cfg, pyr, tile_rows, lr_check,
+                    coarse_backend, sgm=sgm)
+        frames.append([f.to(mesh.first) for f in res])
+    return _stack(frames)
+
+
+def match_temporal_sharded(
+    lefts,
+    rights,
+    cfg: MatchConfig = MatchConfig(),
+    pyr: Optional[PyramidConfig] = None,
+    mesh: Optional[Mesh] = None,
+    keyframe_interval: int = 8,
+    tile_rows: int = 32,
+    lr_check: bool = False,
+    *,
+    plain: bool = False,
+) -> dense.MatchResult:
+    """Temporally seeded video over the mesh's ``tile`` axis, the sharded
+    twin of ``fused_refine.match_temporal_fused``: keyframes (every
+    ``keyframe_interval``-th, frame 0 first) run the sharded pyramid of
+    :func:`match_hierarchical_sharded`; every other frame runs only the
+    level-0 refine on each shard, seeded by the previous frame's disparity
+    rows with the same l/r/prior halo exchange, then the same epilogue.
+    Equal to the unsharded video at the same effective ``tile_rows``."""
+    path = fused_refine.PLAIN if plain else fused_refine.FUSED
+    pyr = PyramidConfig() if pyr is None else pyr
+    mesh = _mesh(mesh)
+    if keyframe_interval < 1:
+        raise ValueError(f"keyframe_interval must be >= 1, got {keyframe_interval}")
+    if lr_check and pyr.levels == 1:
+        raise ValueError("lr_check needs at least one refine level")
+    devs = mesh.devices[0]
+    h = lefts.shape[1]
+    tr, halo = _hierarchical_geometry(h, len(devs), cfg, pyr, tile_rows)
+    max_base = pyr.coarsest_disparities << (pyr.levels - 1)
+    frames, prev = [], None
+    for t in range(lefts.shape[0]):
+        lgs, rgs = _gray_blocks(lefts[t], devs), _gray_blocks(rights[t], devs)
+        if t % keyframe_interval == 0:
+            disps, valids = _hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo, "wta",
+                                                 None, lr_check)
+        else:
+            d, dr = _refine_blocks(path, lgs, rgs, prev, cfg, pyr.final_radius, max_base, tr,
+                                   halo, h, lr_check, pyr.final_windows)
+            disps, valids = _post_blocks(path, d, dr, cfg, max_base, lr_check)
+        prev = disps
+        frames.append(_result(mesh, disps, valids))
+    return _stack(frames)
+
+
+def normalize_depth_sharded(raw_depth, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Global max-normalisation of a row-sharded raw u8 depth map: the max
+    over shards, then each shard's local ``v · 255 // max`` to u8; an
+    all-zero input stays all zero. On the mesh's first device."""
+    mesh = _mesh(mesh)
+    blocks = [b.to(torch.int32) for b in scatter_rows(raw_depth, mesh.devices[0])]
+    m = max(int(b.max()) for b in blocks)
+    out = [(b * 255 // max(m, 1) if m > 0 else torch.zeros_like(b)).to(torch.uint8)
+           for b in blocks]
+    return gather_rows(out, mesh.first)

@@ -39,8 +39,15 @@ def test_grayscale(rng, dtype):
 
 
 def test_array_input_needs_device(rng):
-    with pytest.raises(ValueError, match="device"):
-        dense.grayscale(rng.uniform(0, 1, (4, 4)))
+    """An array without ``device=`` goes to the card; with no card it raises
+    instead of running on the CPU, which only ``device="cpu"`` asks for."""
+    x = rng.uniform(0, 1, (4, 4))
+    if torch.cuda.is_available():
+        assert dense.grayscale(x).device.type == "cuda"
+    else:
+        with pytest.raises(ValueError, match="no CUDA device"):
+            dense.grayscale(x)
+    assert dense.grayscale(x, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("cost", ["sad", "ssd"])

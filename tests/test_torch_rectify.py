@@ -104,14 +104,16 @@ def test_maps_from_arrays_carries_reference_maps():
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_array_equal(np_(g), np_(w))
-    with pytest.raises(ValueError, match="device"):
-        rectify.maps_from_arrays(*(np.asarray(f) for f in want))
+    if not torch.cuda.is_available():  # the card by default: never the CPU unasked
+        with pytest.raises(ValueError, match="no CUDA device"):
+            rectify.maps_from_arrays(*(np.asarray(f) for f in want))
 
 
 def test_device_rules_and_backends(rng):
     kw = RIGS["distorted"]
-    with pytest.raises(ValueError, match="device"):
-        rectify.rectify_maps(**kw)  # arrays only: the device must be named
+    if not torch.cuda.is_available():  # arrays only: the card by default
+        with pytest.raises(ValueError, match="no CUDA device"):
+            rectify.rectify_maps(**kw)
     tensors = {k: torch.as_tensor(np.asarray(v, np.float32)) if k in ("K1", "K2", "R", "T")
                else v for k, v in kw.items()}
     maps = rectify.rectify_maps(**tensors)  # the tensors' device

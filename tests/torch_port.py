@@ -37,3 +37,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one CPU thread for the module, restored after it. The suite
+    runs several pytest workers on one machine; with torch's default of one
+    thread per core in each, its parallel ops oversubscribe the cores and
+    small-tensor tests run ~20× slower than alone. An autouse fixture acts
+    where it is imported."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
