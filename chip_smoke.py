@@ -32,13 +32,20 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       fill 3.5), a 720×1280 output from the 1080×1920 source, the identity
       map (output equals input) and a map spiked with NaN, ±inf and
       far-away entries; beside it, ``grid_sample`` on the same view as a
-      yardstick (``library_ms``; the port never calls it);
+      yardstick (``library_ms``; the port never calls it), and both timed
+      on the device alone, in turns (``device_ms``);
    h. K10, the sharded relay's seeded scan: the 1080p D=64 volume of 3f
       split at rows 360 and 720, each of the six relayed directions (↓y,
       ↑y, ↘, ↙, ↗, ↖) scanned shard by shard through K10 against one
       continuous K7 scan (output) and its plain version (final carry); K10
       against its plain version on the middle shard from the relayed
-      carry; at 70×300, D=24, D=144 and bf16.
+      carry; at 70×300, D=24, D=144 and bf16;
+   i. the edges of the redesigned kernels (``check_edges``): K7 in all 8
+      directions at D = 1, 33, 64, 200 and 256, f32 and bf16, ``acc``
+      None, separate and in place, on ragged shapes down to one row and one
+      column; K10 relayed over shards of 13, 28 and 29 rows; K11 with 1–4
+      channels, every width residue mod 4, views with a storage offset and
+      NaN/inf/far map entries.
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -71,7 +78,9 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       path;
    j. the other sharded paths, each bit-equal to its unsharded kernel path
       and to its own plain path: ``flagship()`` on 4 shards at 1080p;
-      production ``hierarchical-pallas`` on 4 shards at 1024×1920 (no row
+      production ``hierarchical-pallas`` on 4 shards at 1024×1920, through
+      ``match_hierarchical_sharded(..., lr_check=True)`` (``sharded()``
+      drops the LR check, as the reference's does) (no row
       count of 1080 admits a mesh at ``levels=4``: the shard's coarsest
       height must divide by a multiple of 8) with ``tile_rows=32``, and
       ``hierarchical-sgm`` there (close to its unsharded path only: its
@@ -89,6 +98,11 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    360-row shard; the sharded ``sgm-pallas``, ``flagship()`` and production
    frames against their unsharded frames, timed in turns (one card carries
    every shard, so the sharded frames are not expected to be faster).
+   Device times (``device_ms``: CUDA events around 50 back-to-back
+   launches) beside the one-call times: K7 per direction, K11 against
+   ``grid_sample``, and K1 and K2 launched on census planes computed
+   beforehand (``kernel_only_ms``), so that their bounds meet a time of the
+   same work; K1's bound at the ``flagship()`` shape.
 
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
@@ -244,6 +258,36 @@ def cuda_ms(fn, reps=REPS):
     return float(np.median([event_ms(fn) for _ in range(reps)]))
 
 
+DEVICE_LAUNCHES = 50  # back-to-back launches per device-time measurement
+
+
+def device_ms(fn, launches=DEVICE_LAUNCHES):
+    """ms per launch of ``fn`` on the device: CUDA events around
+    ``launches`` back-to-back calls, divided by their number, after a
+    warm-up (the host enqueues ahead of the card, so its own cost per call
+    hides behind the kernels')."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def device_ms_turns(a, b, rounds=4):
+    """Median :func:`device_ms` of ``a`` and of ``b`` over ``rounds`` rounds
+    timed in turns (a b, b a, ...)."""
+    ta, tb = [], []
+    for r in range(rounds):
+        for fn, t in ((a, ta), (b, tb))[:: 1 if r % 2 == 0 else -1]:
+            t.append(device_ms(fn))
+    return float(np.median(ta)), float(np.median(tb))
+
+
 def cuda_ms_turns(a, b, reps=REPS):
     """Median ms of ``a`` and of ``b``, timed in turns (a b, b a, a b, ...)
     after a warm-up: host-bound frames drift between blocks of runs, so two
@@ -255,6 +299,114 @@ def cuda_ms_turns(a, b, reps=REPS):
         for fn, t in ((a, ta), (b, tb))[:: 1 if r % 2 == 0 else -1]:
             t.append(event_ms(fn))
     return float(np.median(ta)), float(np.median(tb))
+
+
+def check_edges(dev, err):
+    """K7, K10 and K11 against their plain versions on the shapes and inputs
+    the main paths do not reach (the CPU suite's ``cuda``-marked cases of
+    ``tests/test_torch_fused_sgm.py``, ``test_torch_sgm_relay.py`` and
+    ``test_torch_fused_remap.py``, which import JAX and so cannot run on the
+    card): K7 in all 8 directions at D = 1, 33, 64, 200, 256, f32 and bf16,
+    ``acc`` None, separate and in place, on ragged shapes (13×21, 5×7, one
+    row, one column, 3×40); K10 relayed over shards of 13, 28 and 29 rows
+    against one continuous K7 scan; K11 with 1–4 channels, widths of every
+    residue mod 4, views with a storage offset and maps with NaN, ±inf and
+    far entries. ``err(name, max_abs_err)`` records each comparison; any
+    difference raises."""
+    from stepth_tpu_torch.match import fused_sgm
+    from stepth_tpu_torch.ops import fused_remap
+
+    rng = np.random.default_rng(SEED)
+    n = 0
+    for D in (1, 33, 64, 200, 256):
+        for dtype in (torch.float32, torch.bfloat16):
+            for h, w in ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40)):
+                vol, acc0 = (torch.as_tensor(rng.integers(0, hi, (D, h, w)).astype(np.float32),
+                                             device=dev).to(dtype) for hi in (50, 500))
+                for axis, rev, sh in fused_sgm.directions(8):
+                    kw = dict(axis=axis, reverse=rev, shift=sh)
+                    for mode in ("none", "separate", "in place"):
+                        acc = None if mode == "none" else acc0.clone()
+                        want = fused_sgm.scan_direction_plain(
+                            vol, None if acc is None else acc.clone(), 25.0, 100.0, **kw)
+                        if mode == "separate":  # out beside acc, which stays as it was
+                            got = torch.empty_like(vol)
+                            fused_sgm.K7.launch(dev, vol.data_ptr(), acc.data_ptr(),
+                                                got.data_ptr(), int(dtype == torch.bfloat16),
+                                                D, h, w, *fused_sgm._step(axis, rev, sh),
+                                                25.0, 100.0)
+                        else:
+                            got = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, **kw)
+                        torch.cuda.synchronize()
+                        ok = torch.equal(got, want) and (
+                            mode != "separate" or torch.equal(acc, acc0)) and (
+                            mode != "in place" or got.data_ptr() == acc.data_ptr())
+                        if not ok:
+                            raise AssertionError(f"K7 {h}x{w} D={D} {dtype} {kw} acc {mode}: "
+                                                 f"not bit-equal")
+                        err("K7", 0.0)
+                        n += 1
+    print(f"  K7: {n} ragged cases bit-equal (D 1-256, f32/bf16, acc none/separate/in place)")
+    h, w, n = 70, 300, 0
+    for D in (24, 144):
+        for dtype in (torch.float32, torch.bfloat16):
+            vol, acc = (torch.as_tensor(rng.integers(0, hi, (D, h, w)).astype(np.float32),
+                                        device=dev).to(dtype) for hi in (50, 500))
+            for axis, rev, sh in fused_sgm.directions(8):
+                if axis != 1:
+                    continue
+                bounds = ((0, 13), (13, 41), (41, h))
+                outs, carry = [None] * 3, None
+                for i in ((2, 1, 0) if rev else (0, 1, 2)):
+                    a, b = bounds[i]
+                    v, ac = vol[:, a:b].contiguous(), acc[:, a:b].contiguous()
+                    want = fused_sgm.scan_direction_carry_plain(v, ac.clone(), carry, 25.0,
+                                                                100.0, reverse=rev, shift=sh)
+                    outs[i], carry = fused_sgm.scan_direction_carry(v, ac, carry, 25.0, 100.0,
+                                                                    reverse=rev, shift=sh)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(outs[i], want[0]) and torch.equal(carry, want[1])):
+                        raise AssertionError(f"K10 D={D} {dtype} {(rev, sh)} rows {a}-{b}: "
+                                             f"not bit-equal to its plain version")
+                cont = fused_sgm.scan_direction(vol, acc.clone(), 25.0, 100.0, axis=1,
+                                                reverse=rev, shift=sh)
+                _, cont_c = fused_sgm.scan_direction_carry_plain(vol, None, None, 25.0, 100.0,
+                                                                 reverse=rev, shift=sh)
+                torch.cuda.synchronize()
+                if not (torch.equal(torch.cat(outs, 1), cont) and torch.equal(carry, cont_c)):
+                    raise AssertionError(f"K10 D={D} {dtype} {(rev, sh)} shards 13/28/29: "
+                                         f"relay != continuous scan")
+                err("K10", 0.0)
+                n += 1
+    print(f"  K10: {n} relays over shards of 13, 28 and 29 rows bit-equal to the plain "
+          f"version, shard by shard, and to one continuous K7 scan")
+    n = 0
+    for c, (hs, ws), (h, w) in ((1, (70, 161), (70, 161)), (2, (64, 162), (60, 162)),
+                                (3, (50, 163), (50, 163)), (4, (48, 164), (44, 160))):
+        shape = (hs, ws) if c == 1 else (hs, ws, c)
+        img = rng.uniform(0, 255, shape).astype(np.float32)
+        m = affine_map(h, w, hs, ws, 0.05, 1.05, (1.3, -0.7), "cpu").numpy()
+        flat = m.reshape(-1, 2)
+        idx = rng.choice(flat.shape[0], size=(6, 30), replace=False)
+        for i, (col, val) in enumerate(((0, np.nan), (1, np.nan), (0, np.inf), (1, -np.inf),
+                                        (0, 1e6), (1, -1e6))):
+            flat[idx[i], col] = val
+        for offset in (False, True):
+            if offset:  # views one element into a larger buffer: 4-byte aligned only
+                img_t, m_t = (torch.empty(a.size + 1, device=dev)[1:].view(a.shape)
+                              for a in (img, m))
+                img_t.copy_(torch.as_tensor(img)), m_t.copy_(torch.as_tensor(m))
+            else:
+                img_t, m_t = torch.as_tensor(img, device=dev), torch.as_tensor(m, device=dev)
+            got = fused_remap.remap_bilinear_fused(img_t, m_t, -2.0)
+            want = fused_remap.remap_bilinear_plain(img_t, m_t, -2.0)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K11 C={c} {h}x{w} offset={offset}: not bit-equal")
+            err("K11", 0.0)
+            n += 1
+    print(f"  K11: {n} cases bit-equal (C 1-4, W % 4 = 1, 2, 3, 0, offset views, "
+          f"NaN/inf/far entries)")
 
 
 def main() -> int:
@@ -349,15 +501,28 @@ def main() -> int:
         err("K1", check_k1(tag, want, got))
         k1 = (cuda_ms(lambda: fused_dense.raw_match(lefts[-1], rights[-1], c_cfg, 16)),
               cuda_ms(lambda: fused_dense.raw_match_plain(lefts[-1], rights[-1], c_cfg, 16)))
+        planes_of = None
         if cfg.cost == "census":  # the planes both wrappers compute in torch
             ms = [cuda_ms(lambda: dense.census_pair(lg, rg, cfg.census_window))
                   for lg, rg in zip(lefts, rights)]
             print(f"  {scene} census planes of a pair, levels 0-{len(ms) - 1}: "
                   + ", ".join(f"{m:.4f}" for m in ms) + " ms")
+            # the kernels alone: K1 and K2 launched on planes computed once
+            planes_of = [dense.census_pair(lg, rg, cfg.census_window)
+                         for lg, rg in zip(lefts, rights)]
+            lc, rc = planes_of[-1]
+            hc_, wc_ = lefts[-1].shape
+            k1_outs = [torch.empty_like(lefts[-1]) for _ in range(4)]
+            k1_only = device_ms(lambda: fused_dense.K1.launch(
+                dev, None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0],
+                *(o.data_ptr() for o in k1_outs), hc_, wc_, c_cfg.num_disparities,
+                c_cfg.window, 0, 0, 1.0, 0, hc_))
+            kernel_only[(scene, cfg.cost, "K1")] = k1_only
+            print(f"  {scene} {cfg.cost} K1 alone on precomputed planes: {k1_only:.4f} ms")
         disp, disp_r = want[0], None
         max_base = pyr.coarsest_disparities
         multi = 0
-        k2_ms = k2_plain_ms = plan_ms = 0.0
+        k2_ms = k2_plain_ms = plan_ms = k2_only = 0.0
         planes = 2 if cfg.cost == "census" else 1  # census window 7: 48 bits
         cand = k2_bytes = 0  # K2's work over the three levels, for its bound
         for lvl in range(pyr.levels - 2, -1, -1):
@@ -392,6 +557,22 @@ def main() -> int:
             else:
                 err("K2", check_map(tag, want, got))
             k2 = cuda_ms(lambda: fused_refine.refine_planned(*args_l, lr=lr))
+            if planes_of is not None:  # K2 alone (with its packed buffer's fill under lr)
+                lc, rc = planes_of[lvl]
+                k2_out = torch.empty_like(lefts[lvl])
+                packed = torch.empty((h, w), dtype=torch.int64, device=dev)
+                M = fused_refine._region_margin(cfg, radius)
+
+                def k2_alone():
+                    if lr:
+                        packed.fill_(-1)
+                    fused_refine.K2.launch(
+                        dev, None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0],
+                        bases.data_ptr(), nw.data_ptr(), k2_out.data_ptr(),
+                        packed.data_ptr() if lr else None, h, w, nw.shape[1], bases.shape[-1],
+                        tr, radius, cfg.window, M, 0, 0, h, int(lr))
+
+                k2_only += device_ms(k2_alone)
             k2p = cuda_ms(lambda: fused_refine.refine_planned_plain(*args_l, lr=lr))
             pl = cuda_ms(lambda: fused_refine.plan_level(prior, 64, max_base, radius, nwin))
             print(f"    level {lvl}: kernel {k2:.4f} ms, plain {k2p:.4f} ms, plan {pl:.4f} ms")
@@ -399,6 +580,10 @@ def main() -> int:
             disp, disp_r = want if lr else (want, None)
         print(f"  {scene} {cfg.cost} K2 per frame (3 levels): kernel {k2_ms:.4f} ms, "
               f"plain {k2_plain_ms:.4f} ms, plan {plan_ms:.4f} ms; tiles nw>1: {multi}")
+        if planes_of is not None:
+            kernel_only[(scene, cfg.cost, "K2")] = k2_only
+            print(f"  {scene} {cfg.cost} K2 alone on precomputed planes, 3 levels: "
+                  f"{k2_only:.4f} ms")
         if scene == "box" and multi == 0:
             raise AssertionError("box scene planned no multi-window tile")
         work[(scene, cfg.cost)] = bound(k2_bytes, cand * (cost_ops(cfg, planes) + 1))
@@ -407,6 +592,7 @@ def main() -> int:
     # 3a/3b. each kernel against its plain version, at the main paths' shapes
     print("== kernels vs plain versions on the card")
     work = {}  # (scene, cost) -> K2's bound over three levels
+    kernel_only = {}  # (scene, cost, kernel) -> device ms of K1 or K2 on precomputed planes
     prod_maps = {}
     for scene, (left, right) in pairs.items():
         lg = dense.grayscale(left, dev)
@@ -459,6 +645,13 @@ def main() -> int:
     times["K1 sad, 1080x1920 D=128 + K4"] = (
         cuda_ms(lambda: fused_dense.raw_match(lg, rg, fcfg, 32)),
         cuda_ms(lambda: fused_dense.raw_match_plain(lg, rg, fcfg, 32)))
+    # its bound at this shape: K1 reads two images and writes four maps, K4
+    # reads two and writes one (9 B/px); K1 costs and box-sums every
+    # (pixel, d) and takes its WTA (2 ops), K4 ~12 ops per pixel
+    flagship_bound = bound((24 + 9) * H * W, H * W * (fcfg.num_disparities
+                                                     * (cost_ops(fcfg, 1) + 2) + 12))
+    print(f"  K1 + K4 {H}x{W} D=128: {times['K1 sad, 1080x1920 D=128 + K4'][0]:.4f} ms, bound "
+          f"{flagship_bound[0]:.4f} ms ({flagship_bound[1]})")
 
     # 3d. K4 and K5 at 1080p: on the production level-0 maps, then on a
     # random map with ~30% invalid pixels
@@ -647,10 +840,15 @@ def main() -> int:
     times["K9"] = (cuda_ms(lambda: fused_sgm.wta_from_volume(sums3[2], cfg_nolr)),
                    cuda_ms(lambda: fused_sgm.wta_from_volume_plain(sums3[2], cfg_nolr), pr))
     scratch = vol3.clone()
+    k7_dirs = {}  # arrow -> (one wrapper call, device time per launch) ms
     for axis, reverse, shift in fused_sgm.directions(8):
-        ms = cuda_ms(lambda: fused_sgm.scan_direction(vol3, scratch, p1, p2, axis=axis,
-                                                      reverse=reverse, shift=shift))
-        print(f"  K7 {arrows[(axis, reverse, shift)]} {H}x{W} D=64: {ms:.4f} ms")
+        def one(axis=axis, reverse=reverse, shift=shift):
+            fused_sgm.scan_direction(vol3, scratch, p1, p2, axis=axis, reverse=reverse,
+                                     shift=shift)
+        a = arrows[(axis, reverse, shift)]
+        k7_dirs[a] = (cuda_ms(one), device_ms(one))
+        print(f"  K7 {a} {H}x{W} D=64: {k7_dirs[a][0]:.4f} ms one call, {k7_dirs[a][1]:.4f} ms "
+              f"per launch over {DEVICE_LAUNCHES} back to back")
     del scratch
     for name in ("K6", "K7", "K8", "K9"):
         print(f"  {name} {H}x{W} D=64: kernel {times[name][0]:.4f} ms, "
@@ -724,6 +922,14 @@ def main() -> int:
     times["K11"] = (cuda_ms(lambda: fused_remap.remap_bilinear_fused(color, m)),
                     cuda_ms(lambda: fused_remap.remap_bilinear_plain(color, m)))
     library_ms = {"K11": cuda_ms(lambda: grid_sample(nchw))}
+    # device times, in turns: the kernel launched straight into a buffer
+    # (no wrapper checks) against grid_sample
+    k11_out = torch.empty_like(color)
+    k11_device = device_ms_turns(lambda: fused_remap.K11.launch(
+        dev, color.data_ptr(), m.data_ptr(), k11_out.data_ptr(), H, W, H, W, 3, 0.0),
+        lambda: grid_sample(nchw))
+    print(f"  K11 {H}x{W}x3 device time per launch ({DEVICE_LAUNCHES} back to back, in turns): "
+          f"kernel {k11_device[0]:.4f} ms, grid_sample {k11_device[1]:.4f} ms")
     k11_gray = (cuda_ms(lambda: fused_remap.remap_bilinear_fused(gray, m)),
                 cuda_ms(lambda: fused_remap.remap_bilinear_plain(gray, m)),
                 cuda_ms(lambda: grid_sample(gray[None, None])))
@@ -805,6 +1011,10 @@ def main() -> int:
                 PLAIN_SGM_REPS))
     print(f"  K10 ↓y {th3}x{W} D=64 shard: kernel {times['K10'][0]:.4f} ms, plain "
           f"{times['K10'][1]:.4f} ms (plain: median of {PLAIN_SGM_REPS})")
+
+    # 3i. the edges of K7, K10 and K11
+    print("== K7, K10 and K11 on ragged shapes, every D, offset views (vs plain versions)")
+    check_edges(dev, err)
 
     # 4a. the SAD slice end to end, through the user's entry point
     print(f"== end to end: StereoModel(backend='hierarchical-pallas'), sad, {H}x{W}")
@@ -1105,7 +1315,10 @@ def main() -> int:
                                         (hs_prod, "sgm", refine4, False)):
         tag = f"{model_.backend} production sharded, 4 shards"
         print(f"== end to end: {tag}, {H2}x{W}, tile_rows 32")
-        run = model_.sharded(mesh4)
+        # sharded() drops lr_check, as the reference's does: the LR check
+        # goes through the sharded function itself
+        run = (lambda l, r, coarse=coarse: sharded.match_hierarchical_sharded(
+            l, r, census, pyr, mesh4, coarse_backend=coarse, sgm=sgm4, lr_check=True))
         res, _ = drive_checked(tag, lambda: run(l2, r2), want)
         check_median(tag, res.disparity)
         check_same(f"{tag} vs unsharded at tile_rows 32", fused_refine.match_hierarchical_fused(
@@ -1266,6 +1479,17 @@ def main() -> int:
          "bound_by": bounds[n][1], "library_ms": library_ms.get(n)}
         for n, k in KERNELS.items()
     ]}
+    extra = {
+        "K1": {"kernel_only_ms": kernel_only[("make_pair", "census", "K1")],
+               "flagship_ms": times["K1 sad, 1080x1920 D=128 + K4"][0],
+               "flagship_bound_ms": flagship_bound[0], "flagship_bound_by": flagship_bound[1]},
+        "K2": {"kernel_only_ms": kernel_only[("make_pair", "census", "K2")]},
+        "K7": {"ms_by_direction": {a: t[0] for a, t in k7_dirs.items()},
+               "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()}},
+        "K11": {"device_ms": k11_device[0], "library_device_ms": k11_device[1]},
+    }
+    for n, entry in zip(KERNELS, summary["kernels"]):
+        entry.update(extra.get(n, {}))
     for entry in summary["kernels"]:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']}: not launched on {entry['path']}")

@@ -26,11 +26,25 @@
 // reference's zero-filled carry shift. One warp walks one chain with the D
 // path costs spread over its lanes (lane l holds d = l + 32 j, j < ND): min_l
 // is a butterfly reduction, d +- 1 come by shuffles, d >= D lanes hold BIG.
-// Chain k of a block is warp k % 8; neighbouring chains read neighbouring
-// addresses at the same step, so the strided d-on-lanes reads share sectors
-// in L1. The next step's volume and accumulator values are loaded before the
-// current step's arithmetic. What bounds a scan: the bytes (vol read, acc
-// read and written) at full resolution; the serial chain (H or W dependent
+// K8 reads its inputs straight from device memory, one step ahead.
+//
+// K7 (and K10) stage their inputs through shared memory instead. Read by a
+// warp with d on its lanes, one step of one chain touches 32 planes H·W
+// apart: 32 sectors for 128 useful bytes, one DRAM latency per serial step.
+// So a block owns a band of neighbouring chains that is contiguous in
+// memory at every step — a run of R elements (64 bytes of f32 at D=64): the
+// columns [c0, c0 + R) of a row for dy = +-1 (chains indexed by their
+// intercept c = x - dx·dy·y, so a diagonal band is a row segment that
+// shifts by one column a row, with the lanes outside the image masked), or
+// P rows, whose stage of R steps is one R-element run per (d, row), for
+// dy = 0. Each stage's [D, P] runs of vol and acc go into a ring of shared-
+// memory slots by 4-byte cp.async, whole sectors per request, one or two
+// stages ahead of the recurrence;
+// the warps then scan the stage from shared memory (a padded d-stride puts
+// the 32 d's a warp reads in 32 banks), leave acc + L in the slot's acc
+// region, and after a barrier the block writes that region back in runs of
+// R consecutive addresses. What bounds a scan: the bytes (vol read, acc
+// read, out written) at full resolution; the serial chain (H or W dependent
 // steps of ~a dozen shuffles each) at the 135x240 coarse level.
 //
 // K10 is K7's kernel with CARRY set; K7's instantiation compiles without the
@@ -53,6 +67,9 @@
 // order the warps run in — the reference's first minimum. A plain read
 // first skips candidates that cannot win (values only decrease, so a stale
 // read is safe). The wrapper decodes the low word.
+
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -128,47 +145,174 @@ __device__ __forceinline__ void scan_step(const float (&prev)[ND], const float (
   }
 }
 
-// Chain k of direction (dy, dx) over an h x w image: its first pixel and
-// its length. Rows for dy = 0, columns for dx = 0; for diagonals the chains
-// entering through the entry row come first (w of them), then those entering
-// through the entry column below or above the corner (h - 1).
-__device__ __forceinline__ void chain_start(int k, int dy, int dx, int h, int w, int* y,
-                                            int* x, int* n) {
-  if (dx == 0) {
-    *x = k; *y = dy > 0 ? 0 : h - 1; *n = h;
-  } else if (dy == 0) {
-    *y = k; *x = dx > 0 ? 0 : w - 1; *n = w;
-  } else {
-    if (k < w) {
-      *y = dy > 0 ? 0 : h - 1;
-      *x = k;
-    } else {
-      const int i = k - w + 1;
-      *x = dx > 0 ? 0 : w - 1;
-      *y = dy > 0 ? i : h - 1 - i;
+constexpr int SWARPS = 8;  // K8: chains (warps) per block
+
+// ---- K7 and K10: one direction, staged through shared memory -------------
+
+// Asynchronous 4-byte copies global -> shared, committed and awaited in groups.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The tiling of a scan. A run is R elements of one (d, row) that lie next
+// to each other in memory. Chains run across runs for
+// dy = +-1 (a block owns R neighbouring chains; a stage is P steps, one run
+// per step) and along them for dy = 0 (a block owns P rows; a stage is R
+// steps, one run per row). A slot holds the [D][P] runs of a stage for vol
+// and for acc (whose place the outputs take), DSTR words per d: odd, so the
+// 32 lanes of a warp reading 32 d's of one (run, element) hit 32 banks.
+// bf16 runs are copied as whole 4-byte words from the word that holds
+// their first element, one word more than R / 2; `par` is where in its
+// word an element starts.
+template <typename T, int R_, int P_, int NST_, bool HORIZ>
+struct ScanTile {
+  static constexpr int EPW = 4 / (int)sizeof(T);   // elements per word
+  static constexpr int R = R_;                     // elements per run
+  static constexpr int P = P_;
+  static constexpr int NST = NST_;                 // ring slots
+  static constexpr int RUNW = R / EPW + (EPW > 1); // words copied per run
+  static constexpr int NCH = HORIZ ? P : R;  // chains per block, one warp each
+  static constexpr int S = HORIZ ? R : P;    // steps per stage
+  static constexpr int DSTR = (P * RUNW) | 1;
+  static constexpr int NT = 32 * NCH;
+  static_assert(RUNW <= R && NT % (P * R) == 0, "thread mapping: one (run, word) a thread");
+};
+
+// The tiling each scan takes, chosen by timing variants on an H100 at 1080p
+// (D=64) and at the 135x240 coarse level (D=16); a slot stays <= ~68 KB.
+// The copies, not the recurrence, set the pace at 1080p, and longer runs
+// cost DRAM less (64-byte runs against 32-byte ones). But a horizontal
+// scan's 1,080 chains must all be resident at once, ~8 per SM, which caps
+// R·P·NST there (L2 prefetches of later stages, tried instead of a longer
+// ring, made it slower).
+//   dy = +-1: R chains of a band, P steps a stage, a 3-slot ring;
+//   dy = 0:   P rows, R steps a stage, a 2-slot ring.
+template <typename T, int ND, bool HORIZ>
+struct ScanPick {
+  using type = typename std::conditional<
+      HORIZ, ScanTile<T, ND == 1 ? 32 : 16, ND <= 4 ? 2 : 1, 2, true>,
+      ScanTile<T, ND == 1 ? 8 : 16, ND == 1 ? 16 : ND == 2 ? 8 : ND <= 4 ? 4 : 2, 3,
+               false>>::type;
+};
+
+// Element offset of `p + off` within its 4-byte word (0 for f32).
+template <typename T>
+__device__ __forceinline__ int par(const T* p, long off) {
+  if (sizeof(T) == 4) return 0;
+  return (int)(((size_t)p / sizeof(T) + (size_t)off) & 1);
+}
+
+// Where the block's chains are: for dy = +-1, chains are indexed by their
+// intercept c = x - sl * y (sl = dx * dy), so at row r the band [c0, c0 +
+// R) is the row segment starting at column c0 + sl * r, and the block's
+// rows are those where the band meets the image (t-th step: row r_lo + t
+// going down, r_hi - t going up). For dy = 0, chains are the rows [y0, y0
+// + P) and a stage's columns one run per row.
+struct ScanGeo {
+  int h, w, dy, dx, sl, c0, r_lo, r_hi, n;
+
+  __device__ __forceinline__ void init(int h_, int w_, int dy_, int dx_, int nch) {
+    h = h_; w = w_; dy = dy_; dx = dx_;
+    sl = dx * dy;
+    if (dy == 0) {
+      c0 = blockIdx.x * nch;
+      r_lo = 0; r_hi = 0;
+      n = w;
+      return;
     }
-    const int ny = dy > 0 ? h - *y : *y + 1;
-    const int nx = dx > 0 ? w - *x : *x + 1;
-    *n = ny < nx ? ny : nx;
+    c0 = (sl > 0 ? -(h - 1) : 0) + (int)blockIdx.x * nch;
+    if (sl == 0) {
+      r_lo = 0; r_hi = h - 1;
+    } else if (sl > 0) {  // x = c + r
+      r_lo = max(0, -(c0 + nch - 1));
+      r_hi = min(h - 1, w - 1 - c0);
+    } else {  // x = c - r
+      r_lo = max(0, c0 - w + 1);
+      r_hi = min(h - 1, c0 + nch - 1);
+    }
+    n = r_hi - r_lo + 1;
+  }
+  __device__ __forceinline__ int row_of_step(int t) const {
+    return dy > 0 ? r_lo + t : r_hi - t;
+  }
+};
+
+// Run q of stage st: its row, the column of its element 0, the columns of
+// it inside the image [xa, xb); `false` when it holds nothing.
+template <int R, int S, bool HORIZ>
+__device__ __forceinline__ bool run_of(const ScanGeo& g, int st, int q, int* row, int* xs,
+                                       int* xa, int* xb) {
+  if (HORIZ) {
+    *row = g.c0 + q;
+    *xs = g.dx > 0 ? st * S : g.w - (st + 1) * S;
+    *xa = max(*xs, 0);
+    *xb = min(*xs + S, g.w);
+    return *row < g.h;
+  }
+  const int t = st * S + q;
+  *row = g.row_of_step(t);
+  *xs = g.c0 + g.sl * *row;
+  *xa = max(*xs, 0);
+  *xb = min(*xs + R, g.w);
+  return t < g.n;
+}
+
+// Copy stage st of `src` into the slot region at shared address `dst`. A
+// thread keeps one (run, word) and strides over d.
+template <class G, bool HORIZ, typename T>
+__device__ __forceinline__ void scan_copy(const T* src, uint32_t dst, const ScanGeo& g,
+                                          int st, int D, long plane) {
+  constexpr int U = G::P * G::R;
+  const int q = (threadIdx.x % U) / G::R, i = threadIdx.x % G::R;
+  int row, xs, xa, xb;
+  if (i >= G::RUNW || !run_of<G::R, G::S, HORIZ>(g, st, q, &row, &xs, &xa, &xb)) return;
+  for (int d = threadIdx.x / U; d < D; d += G::NT / U) {
+    const long off = d * plane + (long)row * g.w + xs;
+    const int p0 = par(src, off);
+    const int col = xs - p0 + G::EPW * i;  // the word's first column
+    // a word is copied when it holds a column of the image; the aligned
+    // word around an element of the tensor lies in a mapped page
+    if (col + G::EPW - 1 < xa || col >= xb) continue;
+    cp_async4(dst + 4u * (d * G::DSTR + q * G::RUNW + i), src + off - p0 + G::EPW * i);
   }
 }
 
-constexpr int SWARPS = 8;  // chains (warps) per block
+// Write stage st's outputs from the slot's acc region (laid out as `lay`'s
+// words) to `out`, element by element, runs of R consecutive addresses.
+template <class G, bool HORIZ, typename T>
+__device__ __forceinline__ void scan_write(T* out, const T* tile, const T* lay,
+                                           const ScanGeo& g, int st, int D, long plane) {
+  constexpr int U = G::P * G::R;
+  const int q = (threadIdx.x % U) / G::R, e = threadIdx.x % G::R;
+  int row, xs, xa, xb;
+  if (!run_of<G::R, G::S, HORIZ>(g, st, q, &row, &xs, &xa, &xb)) return;
+  if (xs + e < xa || xs + e >= xb) return;
+  for (int d = threadIdx.x / U; d < D; d += G::NT / U) {
+    const long off = d * plane + (long)row * g.w + xs;
+    out[off + e] = tile[(d * G::DSTR + q * G::RUNW) * G::EPW + par(lay, off) + e];
+  }
+}
 
-// ---- K7: one direction ---------------------------------------------------
-
-template <typename T, int ND, bool CARRY>
-__global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
+template <typename T, int ND, bool HORIZ, bool CARRY, class G>
+__global__ void __launch_bounds__(G::NT) sgm_scan_kernel(
     const T* __restrict__ vol, const T* acc, T* out, const float* __restrict__ carry_in,
-    float* __restrict__ carry_out, int D, int h, int w, int dy, int dx, float p1, float p2,
-    int nchains) {
-  const int chain = blockIdx.x * SWARPS + threadIdx.x / 32;
+    float* __restrict__ carry_out, int D, int h, int w, int dy, int dx, float p1, float p2) {
+  extern __shared__ uint32_t scan_smem[];
+  const int k = threadIdx.x / 32;  // this warp's chain in the block
   const int lane = threadIdx.x & 31;
-  if (chain >= nchains) return;  // the whole warp leaves together
-  int y, x, n;
-  chain_start(chain, dy, dx, h, w, &y, &x, &n);
-  const size_t plane = (size_t)h * w;
-  const long step = (long)dy * w + dx;
+  ScanGeo g;
+  g.init(h, w, dy, dx, G::NCH);
+  const long plane = (long)h * w;
+  const int slot_words = 2 * D * G::DSTR;  // vol region, then acc/out region
+  const uint32_t smem_s = (uint32_t)__cvta_generic_to_shared(scan_smem);
+  const T* lay = acc ? acc : vol;  // the layout of the outputs in a slot
   float prev[ND], c[ND], a[ND], L[ND];
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
@@ -176,59 +320,86 @@ __global__ void __launch_bounds__(SWARPS * 32) sgm_scan_kernel(
     c[j] = 0.f;
     a[j] = 0.f;
   }
-  // K10: a chain that starts on the entry row continues the upstream scan
-  if (CARRY && carry_in && (dx == 0 || chain < w) && x - dx >= 0 && x - dx < w) {
+  // K10: a chain on the entry row continues the upstream scan
+  const int xk_in = g.c0 + k + g.sl * (dy > 0 ? 0 : h - 1);
+  if (CARRY && carry_in && xk_in >= 0 && xk_in < w && xk_in - dx >= 0 && xk_in - dx < w) {
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const int d = lane + 32 * j;
-      if (d < D) prev[j] = carry_in[(size_t)d * w + x - dx];
+      if (d < D) prev[j] = carry_in[(size_t)d * w + xk_in - dx];
     }
   }
-  size_t o = (size_t)y * w + x;
+  const int nst = (g.n + G::S - 1) / G::S;
+  auto copy = [&](int st) {
+    const uint32_t base = smem_s + 4u * (st % G::NST) * slot_words;
+    scan_copy<G, HORIZ>(vol, base, g, st, D, plane);
+    if (acc) scan_copy<G, HORIZ>(acc, base + 4u * D * G::DSTR, g, st, D, plane);
+  };
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) {
-      c[j] = to_f32(vol[d * plane + o]);
-      if (acc) a[j] = to_f32(acc[d * plane + o]);
-    }
+  for (int st = 0; st < G::NST - 1; ++st) {
+    if (st < nst) copy(st);
+    cp_async_commit();
   }
-  for (int i = 0; i < n; ++i) {
-    // prefetch the next step's inputs (other pixels than this step's store)
-    float cn[ND], an[ND];
-    const size_t on = o + step;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = lane + 32 * j;
-      cn[j] = 0.f;
-      an[j] = 0.f;
-      if (i + 1 < n && d < D) {
-        cn[j] = to_f32(vol[d * plane + on]);
-        if (acc) an[j] = to_f32(acc[d * plane + on]);
-      }
-    }
-    scan_step<ND>(prev, c, L, lane, p1, p2);
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D) {
-        out[d * plane + o] = from_f32<T>(acc ? a[j] + L[j] : L[j]);
-        prev[j] = L[j];
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<G::NST - 2>();
+    __syncthreads();  // stage st has landed; stage st - 1 is written back
+    if (st + G::NST - 1 < nst) copy(st + G::NST - 1);
+    cp_async_commit();
+    uint32_t* slot = scan_smem + (st % G::NST) * slot_words;
+    const T* tv = reinterpret_cast<const T*>(slot);
+    T* ta = reinterpret_cast<T*>(slot + D * G::DSTR);
+    for (int s = 0; s < G::S; ++s) {
+      const int t = st * G::S + s;
+      if (t >= g.n) break;
+      int q, pos, row, xs;
+      if (HORIZ) {
+        row = g.c0 + k;
+        if (row >= h) break;
+        q = k;
+        xs = dx > 0 ? st * G::S : w - (st + 1) * G::S;
+        pos = dx > 0 ? s : G::S - 1 - s;
       } else {
-        prev[j] = kBig;
+        row = g.row_of_step(t);
+        xs = g.c0 + g.sl * row;
+        if (xs + k < 0 || xs + k >= w) continue;  // the chain is outside the image here
+        q = s;
+        pos = k;
       }
-      c[j] = cn[j];
-      a[j] = an[j];
+      const long roff = (long)row * w + xs;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) {
+          const long off = d * plane + roff;
+          const int wi = (d * G::DSTR + q * G::RUNW) * G::EPW + pos;
+          c[j] = to_f32(tv[wi + par(vol, off)]);
+          if (acc) a[j] = to_f32(ta[wi + par(acc, off)]);
+        }
+      }
+      scan_step<ND>(prev, c, L, lane, p1, p2);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) {
+          const long off = d * plane + roff;
+          ta[(d * G::DSTR + q * G::RUNW) * G::EPW + pos + par(lay, off)] =
+              from_f32<T>(acc ? a[j] + L[j] : L[j]);
+          prev[j] = L[j];
+        } else {
+          prev[j] = kBig;
+        }
+      }
     }
-    o = on;
+    __syncthreads();  // every chain has scanned stage st
+    scan_write<G, HORIZ>(out, ta, lay, g, st, D, plane);
   }
   // K10: the chain that ends on the exit row hands its last L downstream
-  if (CARRY && y + dy * (n - 1) == (dy > 0 ? h - 1 : 0)) {
-    const int xe = x + dx * (n - 1);
+  const int xk_out = g.c0 + k + g.sl * (dy > 0 ? h - 1 : 0);
+  if (CARRY && xk_out >= 0 && xk_out < w) {
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const int d = lane + 32 * j;
-      if (d < D) carry_out[(size_t)d * w + xe] = prev[j];
+      if (d < D) carry_out[(size_t)d * w + xk_out] = prev[j];
     }
   }
 }
@@ -388,22 +559,33 @@ int dispatch_nd(int D, Args... args) {
 }
 
 // carry_out == NULL: K7; otherwise K10 (carry_in == NULL seeds zeros)
+template <typename T, int ND, bool HORIZ, bool CARRY, class G = typename ScanPick<T, ND, HORIZ>::type>
+int launch_scan(const void* vol, const void* acc, void* out, const float* carry_in,
+                float* carry_out, int D, int h, int w, int dy, int dx, float p1, float p2,
+                void* stream) {
+  const int nchains = HORIZ ? h : dx == 0 ? w : w + h - 1;
+  const int blocks = (nchains + G::NCH - 1) / G::NCH;
+  const size_t smem = sizeof(uint32_t) * G::NST * 2 * (size_t)D * G::DSTR;
+  auto kern = sgm_scan_kernel<T, ND, HORIZ, CARRY, G>;
+  STEPTH_LAUNCH(kern, blocks, G::NT, smem, stream, (const T*)vol, (const T*)acc, (T*)out,
+                carry_in, carry_out, D, h, w, dy, dx, p1, p2);
+}
+
 template <typename T, int ND>
 struct ScanLaunch {
   static int run(const void* vol, const void* acc, void* out, const float* carry_in,
                  float* carry_out, int D, int h, int w, int dy, int dx, float p1, float p2,
                  void* stream) {
-    const int nchains = dx == 0 ? w : dy == 0 ? h : w + h - 1;
-    const int blocks = (nchains + SWARPS - 1) / SWARPS;
     if (carry_out) {
-      auto kern = sgm_scan_kernel<T, ND, true>;
-      STEPTH_LAUNCH(kern, blocks, SWARPS * 32, 0, stream, (const T*)vol, (const T*)acc,
-                    (T*)out, carry_in, carry_out, D, h, w, dy, dx, p1, p2, nchains);
+      return launch_scan<T, ND, false, true>(vol, acc, out, carry_in, carry_out, D, h, w,
+                                             dy, dx, p1, p2, stream);
     }
-    auto kern = sgm_scan_kernel<T, ND, false>;
-    STEPTH_LAUNCH(kern, blocks, SWARPS * 32, 0, stream, (const T*)vol, (const T*)acc,
-                  (T*)out, (const float*)nullptr, (float*)nullptr, D, h, w, dy, dx, p1, p2,
-                  nchains);
+    if (dy == 0) {
+      return launch_scan<T, ND, true, false>(vol, acc, out, nullptr, nullptr, D, h, w, dy,
+                                             dx, p1, p2, stream);
+    }
+    return launch_scan<T, ND, false, false>(vol, acc, out, nullptr, nullptr, D, h, w, dy, dx,
+                                            p1, p2, stream);
   }
 };
 

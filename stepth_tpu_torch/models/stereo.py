@@ -130,8 +130,10 @@ class StereoModel:
         (``parallel.mesh.make_mesh``) on a pair of tensors or arrays; the
         result lands on the mesh's first device. ``sgm-pallas`` takes the
         ``exact``/``warmup``/``halo`` keywords of
-        ``match_pair_sgm_pallas_sharded``. Unlike the reference's, the
-        hierarchical backends keep ``lr_check``."""
+        ``match_pair_sgm_pallas_sharded``. As in the reference, the
+        hierarchical backends run without ``lr_check``: call
+        ``parallel.sharded.match_hierarchical_sharded(..., lr_check=True)``
+        for the sharded LR check."""
         from stepth_tpu_torch.parallel import sharded
 
         if self.backend == "dense":
@@ -141,7 +143,7 @@ class StereoModel:
         if self.backend in ("hierarchical-pallas", "hierarchical-sgm"):
             return lambda l, r: sharded.match_hierarchical_sharded(
                 l, r, self.match, self.pyramid, mesh, coarse_backend=self._coarse(),
-                sgm=self.sgm, lr_check=self.lr_check)
+                sgm=self.sgm)
         if self.backend == "sgm":
             from stepth_tpu_torch.parallel import sgm_sharded
 

@@ -36,8 +36,8 @@ def remap_bilinear_fused(img: torch.Tensor, map_xy: torch.Tensor,
                          fill: float = 0.0) -> torch.Tensor:
     """Bilinear warp of f32 ``img`` [Hs, Ws] or [Hs, Ws, C] through
     ``map_xy`` f32[H, W, 2] ((x, y) source coordinates), ``fill`` outside
-    the source: K11 on CUDA tensors (one launch whatever C), the plain
-    version on CPU tensors."""
+    the source: K11 on CUDA tensors (one launch whatever C; any contiguous
+    view, aligned or not), the plain version on CPU tensors."""
     if img.device.type == "cpu":
         return remap_bilinear_plain(img, map_xy, fill)
     if img.ndim not in (2, 3):
@@ -47,8 +47,6 @@ def remap_bilinear_fused(img: torch.Tensor, map_xy: torch.Tensor,
     if map_xy.shape[-1] != 2 or map_xy.device != img.device:
         raise ValueError(f"remap: map must be [H, W, 2] on {img.device}, got "
                          f"{tuple(map_xy.shape)} on {map_xy.device}")
-    if map_xy.data_ptr() % 8:
-        raise ValueError("remap: map must be 8-byte aligned (it is read as float2)")
     hs, ws = img.shape[:2]
     c = img.shape[2] if img.ndim == 3 else 1
     h, w = map_xy.shape[:2]

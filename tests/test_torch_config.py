@@ -11,6 +11,8 @@ from stepth_tpu.models import stereo as ref_stereo
 from stepth_tpu_torch import config
 from stepth_tpu_torch.models import stereo
 
+from tests.torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
+
 PAIRS = [
     (ref_config.MatchConfig, config.MatchConfig),
     (ref_config.PyramidConfig, config.PyramidConfig),

@@ -19,7 +19,7 @@ from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import dense, pyramid
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import assert_close, np_
+from tests.torch_port import assert_close, np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _t(a):

@@ -17,7 +17,7 @@ from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import fused_dense
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import assert_close, cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import assert_close, cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 
 def _outputs_close(ref, got):

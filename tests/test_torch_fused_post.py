@@ -13,7 +13,7 @@ from stepth_tpu.match import dense as ref_dense
 from stepth_tpu.match import pallas_post
 from stepth_tpu_torch.match import fused_post
 
-from tests.torch_port import cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 
 @pytest.mark.parametrize("shape", [(37, 130), (64, 256), (9, 7), (2, 3)])

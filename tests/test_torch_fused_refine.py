@@ -18,7 +18,7 @@ from stepth_tpu_torch.match import fused_refine, pyramid
 from stepth_tpu_torch.utils import scenes
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import assert_close, cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import assert_close, cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 SHIFT = 6
 

@@ -3,7 +3,9 @@ against the JAX package's ``rectify.remap_bilinear`` and, once, against the
 Pallas kernel in interpret mode; on a card, the CUDA kernel against its
 plain version.
 
-Tolerances: max |Δ| ≤ 1e-4 on 0–255 images, with equal fill masks. The
+The cases cover 1–4 channels, widths of every residue mod 4 and maps
+with NaN, ±inf and far entries; on the card each also runs on views with
+a storage offset. Tolerances: max |Δ| ≤ 1e-4 on 0–255 images, with equal fill masks. The
 plain version is not bit-equal to the JAX package: XLA's fused CPU loop
 rounds the weighted sum differently (it may contract products into FMAs),
 so 16–24% of the pixels of each case differ, by at most 3.1e-5 (measured;
@@ -23,7 +25,7 @@ from stepth_tpu.ops.pallas_remap import plan_remap, remap_bilinear_pallas
 from stepth_tpu_torch.ops import fused_remap, rectify
 
 from tests.test_pallas_remap import _rot_map
-from tests.torch_port import cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 
 def _rig_maps(h, w):
@@ -75,12 +77,24 @@ def _case(name, rng):
     if name in ("rig_left", "rig_right"):
         img = rng.uniform(0, 255, (96, 192, 3)).astype(np.float32)
         return img, _rig_maps(96, 192)[name == "rig_right"], 0.0
+    # widths that are not multiples of 4 (the kernel's 4-pixel groups) and
+    # the channel counts with vector stores
+    if name == "two_channels_w161":
+        img = rng.uniform(0, 255, (64, 161, 2)).astype(np.float32)
+        return img, _rot_map(64, 161, 64, 161, 0.04, shift=(1.3, -0.6)), 0.0
+    if name == "four_channels_w162":
+        img = rng.uniform(0, 255, (50, 162, 4)).astype(np.float32)
+        return img, _rot_map(48, 162, 50, 162, -0.03, scale=1.05), 1.5
+    if name == "nan_inf_far_w131":
+        img = rng.uniform(0, 255, (70, 131)).astype(np.float32)
+        return img, _wild_map(70, 131, 70, 131, rng), -2.0
     assert name == "nan_inf_far"
     return rng.uniform(0, 255, (70, 130)).astype(np.float32), _wild_map(70, 130, 70, 130, rng), -2.0
 
 
 CASES = ["identity", "rotation", "scale_shift_fill", "other_output_shape", "three_channels",
-         "rig_left", "rig_right", "nan_inf_far"]
+         "rig_left", "rig_right", "nan_inf_far", "two_channels_w161", "four_channels_w162",
+         "nan_inf_far_w131"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -121,11 +135,25 @@ def test_rectify_pair_pallas_backend_is_the_wrapper(rng):
     assert b.dtype == torch.float32
 
 
+def _offset_view(a, device):
+    """``a`` on ``device`` as a contiguous view one element into a larger
+    buffer: a storage offset, 4-byte but not 16-byte aligned."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32, device=device)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.as_tensor(a))
+    assert view.is_contiguous() and view.storage_offset() == 1
+    return view
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
 @pytest.mark.parametrize("name", CASES)
-def test_kernel_bit_equal_on_card(cuda, rng, name):
+def test_kernel_bit_equal_on_card(cuda, rng, name, offset):
     img, m, fill = _case(name, rng)
-    img_t, m_t = torch.as_tensor(img, device=cuda), torch.as_tensor(m, device=cuda)
+    if offset:  # image and map both views with a storage offset
+        img_t, m_t = _offset_view(img, cuda), _offset_view(m, cuda)
+    else:
+        img_t, m_t = torch.as_tensor(img, device=cuda), torch.as_tensor(m, device=cuda)
     before = fused_remap.K11.launches
     got = fused_remap.remap_bilinear_fused(img_t, m_t, fill)
     torch.cuda.synchronize()

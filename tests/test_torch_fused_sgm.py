@@ -19,7 +19,7 @@ from stepth_tpu.match import pallas_sgm
 from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import fused_sgm
 
-from tests.torch_port import cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -151,6 +151,40 @@ def test_kernels_match_plain_on_card(cuda, cost, D, dtype):
         torch.cuda.synchronize()
         for a, b in zip(want, got):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc_mode", ["none", "separate", "in_place"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 33, 64, 200, 256])
+def test_scan_edges_match_plain_on_card(cuda, D, dtype, acc_mode):
+    """K7 bit-equal to its plain version in all eight directions on ragged
+    shapes: h and w that are not multiples of the kernel's bands and stages
+    (8 or 16 chains, 2-16 steps), smaller than one band, one row, one
+    column; ``acc`` None, a separate tensor, or updated in place."""
+    rng = np.random.default_rng(D)
+    for h, w in ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40)):
+        vol = torch.from_numpy(rng.integers(0, 50, (D, h, w)).astype(np.float32)).to(cuda)
+        acc0 = torch.from_numpy(rng.integers(0, 500, (D, h, w)).astype(np.float32)).to(cuda)
+        vol, acc0 = vol.to(dtype), acc0.to(dtype)
+        for axis, reverse, shift in fused_sgm.directions(8):
+            kw = dict(axis=axis, reverse=reverse, shift=shift)
+            acc = None if acc_mode == "none" else acc0.clone()
+            want = fused_sgm.scan_direction_plain(vol, None if acc is None else acc.clone(),
+                                                  25.0, 100.0, **kw)
+            if acc_mode == "separate":  # out beside acc, which stays as it was
+                out = torch.empty_like(vol)
+                dy, dx = fused_sgm._step(axis, reverse, shift)
+                fused_sgm.K7.launch(cuda, vol.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                                    int(dtype == torch.bfloat16), D, h, w, dy, dx, 25.0, 100.0)
+                torch.cuda.synchronize()
+                assert torch.equal(out, want) and torch.equal(acc, acc0), (h, w, kw)
+                continue
+            got = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (h, w, kw)
+            if acc_mode == "in_place":
+                assert got.data_ptr() == acc.data_ptr()
 
 
 @pytest.mark.cuda

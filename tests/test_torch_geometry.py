@@ -18,7 +18,7 @@ from stepth_tpu.fusion import geometry as ref_geometry
 from stepth_tpu_torch.core import io
 from stepth_tpu_torch.fusion import geometry
 
-from tests.torch_port import np_
+from tests.torch_port import np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 INTR = np.array([500.0, 480.0, 320.0, 240.0], np.float32)
 

@@ -25,7 +25,7 @@ from stepth_tpu_torch.match import fused_refine
 from stepth_tpu_torch.models.stereo import StereoModel
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 REF_SAD = RefStereoModel(
     backend="hierarchical-sgm",

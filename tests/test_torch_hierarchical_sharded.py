@@ -19,6 +19,7 @@ import torch
 from stepth_tpu.config import MatchConfig as RefMatchConfig
 from stepth_tpu.config import PyramidConfig as RefPyramidConfig
 from stepth_tpu.match.sgm import SGMConfig as RefSGMConfig
+from stepth_tpu.models.stereo import StereoModel as RefStereoModel
 from stepth_tpu.parallel import mesh as ref_mesh
 from stepth_tpu.parallel import sharded as ref_sharded
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
@@ -148,13 +149,19 @@ def test_temporal_sharded_equals_unsharded(lr_check):
     assert_equal(want, got)
 
 
-def test_model_sharded_keeps_lr_check():
+def test_model_sharded_matches_reference_with_lr_check():
+    """``StereoModel(..., lr_check=True).sharded(mesh)`` equals the JAX
+    package's (Pallas in interpret mode) on the same inputs: both drop
+    ``lr_check`` on the sharded hierarchical path."""
     left, right = _pair()
-    cfg, pyr = MatchConfig(**CFG), PyramidConfig(**PYR)
-    model = StereoModel(backend="hierarchical-pallas", match=cfg, pyramid=pyr, lr_check=True)
-    assert_equal(sharded.match_hierarchical_sharded(left, right, cfg, pyr, cpu_mesh(2),
-                                                    lr_check=True),
-                 model.sharded(cpu_mesh(2))(left, right))
+    model = StereoModel(backend="hierarchical-pallas", match=MatchConfig(**CFG),
+                        pyramid=PyramidConfig(**PYR), lr_check=True)
+    ref = RefStereoModel(backend="hierarchical-pallas", match=RefMatchConfig(**CFG),
+                         pyramid=RefPyramidConfig(**PYR), lr_check=True)
+    want = ref.sharded(ref_mesh.make_mesh(data=1, tile=2))(left, right)
+    got = model.sharded(cpu_mesh(2))(left, right)
+    assert_equal(want, got)
+    assert bool(got.valid.all())  # no LR check ran
 
 
 @pytest.mark.parametrize("h, ntile, window, pyr, lr_check", [

@@ -24,7 +24,7 @@ from stepth_tpu.oracle.kmeans import depth_split_oracle
 from stepth_tpu_torch.ops import (adjust, depth, kmeans, mask, photometric, resize,
                                   temporal)
 
-from tests.torch_port import np_
+from tests.torch_port import np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _data(rng):

@@ -16,7 +16,7 @@ import torch
 from stepth_tpu.ops import rectify as ref_rectify
 from stepth_tpu_torch.ops import rectify
 
-from tests.torch_port import np_
+from tests.torch_port import np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _rot(axis, deg):

@@ -32,7 +32,7 @@ from stepth_tpu_torch.models.stereo import StereoModel
 from stepth_tpu_torch.ops import depth, fused_remap, kmeans, photometric, rectify
 from stepth_tpu_torch.utils.rig import plane_rig
 
-from tests.torch_port import assert_close, cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import assert_close, cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 H, W = 96, 256
 K = np.array([[220.0, 0, 127.5], [0, 220.0, 47.5], [0, 0, 1]], np.float32)

@@ -23,7 +23,7 @@ from stepth_tpu_torch.match import sgm
 from stepth_tpu_torch.models.stereo import StereoModel
 
 from tests.test_match_dense import make_pair
-from tests.torch_port import assert_close, np_
+from tests.torch_port import assert_close, np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _volume(rng, kind, shape):

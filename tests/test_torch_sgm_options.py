@@ -22,7 +22,7 @@ from stepth_tpu_torch.match import fused_sgm
 
 from tests.test_match_dense import make_pair
 from tests.test_torch_sgm_pipeline import assert_results_equal, int_pair, run_both
-from tests.torch_port import assert_close, np_
+from tests.torch_port import assert_close, np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def test_uniqueness_window_9(rng):

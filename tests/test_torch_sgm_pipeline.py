@@ -22,7 +22,7 @@ from stepth_tpu_torch.config import MatchConfig, SGMConfig, from_dict
 from stepth_tpu_torch.match import fused_sgm
 from stepth_tpu_torch.models.stereo import StereoModel
 
-from tests.torch_port import np_
+from tests.torch_port import np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def int_pair(rng, h=40, w=72, shift=5):

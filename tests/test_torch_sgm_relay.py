@@ -92,12 +92,15 @@ def test_carry_scan_rejects_a_bad_shift(rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cuts", [[24, 48], [13, 41]], ids=["24-48", "13-41"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D_", [24, 144])
-def test_kernel_matches_plain_on_card(cuda, D_, dtype):
+def test_kernel_matches_plain_on_card(cuda, D_, dtype, cuts):
     """K10 bit-equal to its plain version from a nonzero carry in all six
     relayed directions at an unaligned size, and a split scan relayed
-    through K10 equal to one continuous K7 scan (output and carry)."""
+    through K10 equal to one continuous K7 scan (output and carry); the
+    cuts 13 and 41 make shards of 13, 28 and 29 rows, none a whole number
+    of the kernel's stages."""
     rng = np.random.default_rng(3)
     vol, acc, carry0 = (torch.from_numpy(a).to(cuda) for a in _inputs(rng, D_, 70, 300))
     vol, acc = vol.to(dtype), acc.to(dtype)
@@ -109,7 +112,7 @@ def test_kernel_matches_plain_on_card(cuda, D_, dtype):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kw
         cont = fused_sgm.scan_direction(vol, acc.clone(), P1, P2, axis=1, **kw)
         _, cont_c = fused_sgm.scan_direction_carry(vol, None, None, P1, P2, **kw)
-        split, split_c = _relayed(fused_sgm.scan_direction_carry, vol, acc, [24, 48], reverse,
+        split, split_c = _relayed(fused_sgm.scan_direction_carry, vol, acc, cuts, reverse,
                                   shift)
         torch.cuda.synchronize()
         assert torch.equal(split, cont) and torch.equal(split_c, cont_c), kw

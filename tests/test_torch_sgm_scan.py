@@ -19,6 +19,7 @@ from stepth_tpu.match.sgm import SGMConfig
 from stepth_tpu_torch.match import fused_sgm
 
 from tests.test_torch_fused_sgm import DTYPES, S, S_REAL, T, T_REAL, _equal, _torch
+from tests.torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

@@ -20,7 +20,7 @@ from stepth_tpu_torch.models.stereo import StereoModel
 
 from tests.test_temporal_video import _clip
 from tests.test_torch_hierarchical_sgm import REF_PRODUCTION, assert_results_equal, int_pair
-from tests.torch_port import np_
+from tests.torch_port import np_, one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def test_video_matches_reference():

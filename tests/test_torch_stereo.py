@@ -24,7 +24,7 @@ from stepth_tpu_torch.utils import scenes
 
 from tests.test_match_dense import make_pair
 from tests.test_temporal_video import _clip
-from tests.torch_port import assert_close, cuda, np_  # noqa: F401 (fixture)
+from tests.torch_port import assert_close, cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 REF_MODEL = RefStereoModel(
     backend="hierarchical-pallas",
