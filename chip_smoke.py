@@ -40,12 +40,17 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       continuous K7 scan (output) and its plain version (final carry); K10
       against its plain version on the middle shard from the relayed
       carry; at 70×300, D=24, D=144 and bf16;
-   i. the edges of the redesigned kernels (``check_edges``): K7 in all 8
-      directions at D = 1, 33, 64, 200 and 256, f32 and bf16, ``acc``
-      None, separate and in place, on ragged shapes down to one row and one
-      column; K10 relayed over shards of 13, 28 and 29 rows; K11 with 1–4
-      channels, every width residue mod 4, views with a storage offset and
-      NaN/inf/far map entries.
+   i. the edges of the redesigned kernels (``check_edges``): K1 on
+      ``K1_EDGES`` (D from 1 to 200, w below D and below a tile, w not a
+      multiple of the tile width, right-view winners one or two tiles
+      away, census with 1–3 planes, row shards with ``g_row0`` < 0 and
+      ``g_row0 + h > g_h``, one 1080-row case); K7 in all 8 directions at D
+      = 1, 33, 64, 200 and 256, f32 and bf16, ``acc`` None, separate and in
+      place, on ragged shapes down to one row and one column; K8 on
+      ``K8_EDGES`` (D = 1, 16, 33, 64, 128, f32 and bf16, uniqueness on
+      and off, h = 1, 2, 9, w = 1, 17, 300); K10 relayed over shards of 13,
+      28 and 29 rows; K11 with 1–4 channels, every width residue mod 4,
+      views with a storage offset and NaN/inf/far map entries.
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -98,11 +103,13 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    360-row shard; the sharded ``sgm-pallas``, ``flagship()`` and production
    frames against their unsharded frames, timed in turns (one card carries
    every shard, so the sharded frames are not expected to be faster).
-   Device times (``device_ms``: CUDA events around 50 back-to-back
-   launches) beside the one-call times: K7 per direction, K11 against
-   ``grid_sample``, and K1 and K2 launched on census planes computed
-   beforehand (``kernel_only_ms``), so that their bounds meet a time of the
-   same work; K1's bound at the ``flagship()`` shape.
+   Device times (``device_ms``: 50 launches captured in one CUDA graph,
+   its replay between CUDA events; 10 for K6 and K8) beside the one-call
+   times, for every kernel: K1 and K2 launched on census planes computed
+   beforehand, so that their bounds meet a time of the same work, K1 and
+   K8 with the fill of their right-view buffer, K7 per direction, K11
+   against ``grid_sample``; and K1 alone at the ``flagship()`` shape
+   against its bound there.
 
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
@@ -142,9 +149,11 @@ def bound(nbytes, ops):
 def cost_ops(cfg, planes):
     """f32 operations per (pixel, d) of a cost and its separable box sums:
     sub + abs (or mul), or xor + popcount per census plane and the adds
-    joining them; ``window − 1`` adds per axis."""
+    joining them; then the adds of the box sums per axis: 4 for window 9
+    (the reference's association: each cell's 3-sum once, 2 adds, then 2
+    joining three 3-sums), ``window − 1`` for the others."""
     cost = 3 * planes - 1 if cfg.cost == "census" else 2
-    return cost + 2 * (cfg.window - 1)
+    return cost + 2 * (4 if cfg.window == 9 else cfg.window - 1)
 
 
 def make_pair(h, w, shift=24, seed=0):
@@ -258,21 +267,26 @@ def cuda_ms(fn, reps=REPS):
     return float(np.median([event_ms(fn) for _ in range(reps)]))
 
 
-DEVICE_LAUNCHES = 50  # back-to-back launches per device-time measurement
+DEVICE_LAUNCHES = 50  # launches per device-time measurement
 
 
 def device_ms(fn, launches=DEVICE_LAUNCHES):
-    """ms per launch of ``fn`` on the device: CUDA events around
-    ``launches`` back-to-back calls, divided by their number, after a
-    warm-up (the host enqueues ahead of the card, so its own cost per call
-    hides behind the kernels')."""
+    """ms per launch of ``fn`` on the device: ``launches`` calls captured in
+    one CUDA graph, its replay timed by CUDA events and divided by their
+    number, after a warm-up call and a warm-up replay (no host time between
+    the launches, however small the kernel)."""
     fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(launches):
-        fn()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
@@ -301,22 +315,81 @@ def cuda_ms_turns(a, b, reps=REPS):
     return float(np.median(ta)), float(np.median(tb))
 
 
+# K1's edge cases (h, w, D, window, cost, census_window, uniqueness, g_row0,
+# g_h, shift of the right view): D from 1 to 200; w below D and below the
+# 128-column tile, w not a multiple of it; true disparities near D - 1, so
+# that right-view winners come from columns one or two tiles away; census
+# with 1-3 planes; row shards with g_row0 < 0 and g_row0 + h > g_h; one
+# 1080-row case with uniqueness, the window-9 kernel's other instantiation
+K1_EDGES = (
+    (37, 300, 1, 9, "sad", 7, None, 0, None, 0),
+    (40, 100, 16, 9, "census", 5, 0.1, 0, None, 5),
+    (40, 300, 127, 9, "sad", 7, None, 0, None, 120),
+    (33, 257, 128, 9, "census", 7, 0.1, 0, None, 100),
+    (20, 100, 129, 7, "ssd", 7, None, 0, None, 30),
+    (24, 150, 200, 5, "census", 9, None, 0, None, 140),
+    (50, 260, 64, 9, "sad", 7, 0.1, -8, 38, 60),
+    (45, 131, 48, 9, "census", 7, None, -3, 40, 40),
+    (1080, 515, 129, 9, "census", 9, 0.1, 0, None, 100),
+)
+# K8's: every D class, f32 and bf16, uniqueness on and off, h and w down to 1
+K8_EDGES = [(D, dtype, uniq, h, w) for D in (1, 16, 33, 64, 128)
+            for dtype in (torch.float32, torch.bfloat16) for uniq in (None, 0.1)
+            for h in (1, 2, 9) for w in (1, 17, 300)]
+
+
+def edge_pair(rng, h, w, shift):
+    """Integer-valued gray views, the right one the left shifted by
+    ``shift`` columns (wrapped) plus small noise."""
+    left = rng.integers(0, 256, (h, w)).astype(np.float32)
+    right = np.roll(left, -shift, axis=1) + rng.integers(0, 3, (h, w)).astype(np.float32)
+    return left, right
+
+
 def check_edges(dev, err):
-    """K7, K10 and K11 against their plain versions on the shapes and inputs
-    the main paths do not reach (the CPU suite's ``cuda``-marked cases of
-    ``tests/test_torch_fused_sgm.py``, ``test_torch_sgm_relay.py`` and
+    """K1, K7, K8, K10 and K11 against their plain versions on the shapes
+    and inputs the main paths do not reach (the CPU suite's
+    ``cuda``-marked cases of ``tests/test_torch_fused_dense.py``,
+    ``test_torch_fused_sgm.py``, ``test_torch_sgm_relay.py`` and
     ``test_torch_fused_remap.py``, which import JAX and so cannot run on the
-    card): K7 in all 8 directions at D = 1, 33, 64, 200, 256, f32 and bf16,
-    ``acc`` None, separate and in place, on ragged shapes (13×21, 5×7, one
-    row, one column, 3×40); K10 relayed over shards of 13, 28 and 29 rows
-    against one continuous K7 scan; K11 with 1–4 channels, widths of every
-    residue mod 4, views with a storage offset and maps with NaN, ±inf and
-    far entries. ``err(name, max_abs_err)`` records each comparison; any
-    difference raises."""
+    card): K1 on ``K1_EDGES``; K7 in all 8 directions at D = 1, 33, 64, 200,
+    256, f32 and bf16, ``acc`` None, separate and in place, on ragged shapes
+    (13×21, 5×7, one row, one column, 3×40); K8 on ``K8_EDGES``; K10 relayed
+    over shards of 13, 28 and 29 rows against one continuous K7 scan; K11
+    with 1–4 channels, widths of every residue mod 4, views with a storage
+    offset and maps with NaN, ±inf and far entries. ``err(name,
+    max_abs_err)`` records each comparison; any difference raises."""
+    from stepth_tpu_torch.config import MatchConfig
+    from stepth_tpu_torch.match import fused_dense
     from stepth_tpu_torch.match import fused_sgm
     from stepth_tpu_torch.ops import fused_remap
 
     rng = np.random.default_rng(SEED)
+    for h, w, D, win, cost, cw, uniq, g_row0, g_h, shift in K1_EDGES:
+        lg, rg = (torch.as_tensor(a, device=dev) for a in edge_pair(rng, h, w, shift))
+        c = MatchConfig(num_disparities=D, window=win, cost=cost, census_window=cw,
+                        uniqueness=uniq, lr_threshold=None)
+        want = fused_dense.raw_match_plain(lg, rg, c, 16, g_row0, g_h)
+        got = fused_dense.raw_match(lg, rg, c, 16, g_row0, g_h)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"K1 {h}x{w} D={D} window {win} {cost} census_window {cw} "
+                                 f"uniqueness {uniq} g_row0 {g_row0} g_h {g_h}: not bit-equal")
+        err("K1", 0.0)
+    print(f"  K1: {len(K1_EDGES)} edge cases bit-equal (D 1-200, w < D, w % 128 != 0, "
+          f"right view across tiles, census 1-3 planes, row shards)")
+    for D, dtype, uniq, h, w in K8_EDGES:
+        vol, acc = (torch.as_tensor(rng.integers(0, hi, (D, h, w)).astype(np.float32),
+                                    device=dev).to(dtype) for hi in (50, 500))
+        c = MatchConfig(num_disparities=D, window=5, uniqueness=uniq)
+        want = fused_sgm.scan_wta_direction_plain(vol, acc, 25.0, 100.0, c)
+        got = fused_sgm.scan_wta_direction(vol, acc, 25.0, 100.0, c)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"K8 {h}x{w} D={D} {dtype} uniqueness {uniq}: not bit-equal")
+        err("K8", 0.0)
+    print(f"  K8: {len(K8_EDGES)} cases bit-equal (D 1-128, f32/bf16, uniqueness on/off, "
+          f"h 1/2/9, w 1/17/300)")
     n = 0
     for D in (1, 33, 64, 200, 256):
         for dtype in (torch.float32, torch.bfloat16):
@@ -512,11 +585,18 @@ def main() -> int:
                          for lg, rg in zip(lefts, rights)]
             lc, rc = planes_of[-1]
             hc_, wc_ = lefts[-1].shape
-            k1_outs = [torch.empty_like(lefts[-1]) for _ in range(4)]
-            k1_only = device_ms(lambda: fused_dense.K1.launch(
-                dev, None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0],
-                *(o.data_ptr() for o in k1_outs), hc_, wc_, c_cfg.num_disparities,
-                c_cfg.window, 0, 0, 1.0, 0, hc_))
+            k1_outs = [torch.empty_like(lefts[-1]) for _ in range(3)]
+            k1_right = torch.empty((hc_, wc_), dtype=torch.int64, device=dev)
+
+            def k1_alone():  # the right view's buffer fill, then K1
+                k1_right.fill_(fused_dense._RIGHT_START)
+                fused_dense.K1.launch(
+                    dev, None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0],
+                    k1_outs[0].data_ptr(), k1_right.data_ptr(), k1_outs[1].data_ptr(),
+                    k1_outs[2].data_ptr(), hc_, wc_, c_cfg.num_disparities, c_cfg.window, 0, 0,
+                    1.0, 0, hc_)
+
+            k1_only = device_ms(k1_alone)
             kernel_only[(scene, cfg.cost, "K1")] = k1_only
             print(f"  {scene} {cfg.cost} K1 alone on precomputed planes: {k1_only:.4f} ms")
         disp, disp_r = want[0], None
@@ -593,6 +673,7 @@ def main() -> int:
     print("== kernels vs plain versions on the card")
     work = {}  # (scene, cost) -> K2's bound over three levels
     kernel_only = {}  # (scene, cost, kernel) -> device ms of K1 or K2 on precomputed planes
+    device = {}  # kernel -> device ms per launch at the shape its "ms" was timed at
     prod_maps = {}
     for scene, (left, right) in pairs.items():
         lg = dense.grayscale(left, dev)
@@ -615,6 +696,7 @@ def main() -> int:
             times["K1"], times["K2"] = k1_c, k2_c
             times["K3"] = (cuda_ms(lambda: fused_post.median3_fused(disp)),
                            cuda_ms(lambda: fused_post.median3_plain(disp)))
+            device["K3"] = device_ms(lambda: fused_post.median3_fused(disp))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     noise = torch.rand((H, W), generator=gen, device=dev) * 128
     if not torch.equal(fused_post.median3_fused(noise), fused_post.median3_plain(noise)):
@@ -634,6 +716,7 @@ def main() -> int:
                              fused_refine.emit_right(*emit)))
     times["K2 emit"] = (cuda_ms(lambda: fused_refine.emit_right(*emit)),
                         cuda_ms(lambda: fused_refine.emit_right_plain(*emit)))
+    device["K2 emit"] = device_ms(lambda: fused_refine.emit_right(*emit))
 
     # 3c. K1 at full resolution with D=128 and its LR check (flagship)
     fcfg = flagship().match
@@ -652,6 +735,23 @@ def main() -> int:
                                                      * (cost_ops(fcfg, 1) + 2) + 12))
     print(f"  K1 + K4 {H}x{W} D=128: {times['K1 sad, 1080x1920 D=128 + K4'][0]:.4f} ms, bound "
           f"{flagship_bound[0]:.4f} ms ({flagship_bound[1]})")
+    # K1 alone at this shape: the right view's buffer fill and the launch, on
+    # the device; its bound without K4 (two images read, four maps written)
+    fl_outs = [torch.empty_like(lg) for _ in range(3)]
+    fl_right = torch.empty((H, W), dtype=torch.int64, device=dev)
+
+    def k1_flagship():
+        fl_right.fill_(fused_dense._RIGHT_START)
+        fused_dense.K1.launch(dev, lg.data_ptr(), rg.data_ptr(), None, None, 0,
+                              fl_outs[0].data_ptr(), fl_right.data_ptr(), fl_outs[1].data_ptr(),
+                              fl_outs[2].data_ptr(), H, W, fcfg.num_disparities, fcfg.window,
+                              0, 0, 1.0, 0, H)
+
+    k1_flag_device = device_ms(k1_flagship)
+    k1_flag_bound = bound(24 * H * W, H * W * fcfg.num_disparities * (cost_ops(fcfg, 1) + 2))
+    print(f"  K1 alone {H}x{W} D=128 (device, with its buffer fill): {k1_flag_device:.4f} ms, "
+          f"bound {k1_flag_bound[0]:.4f} ms ({k1_flag_bound[1]}), "
+          f"{k1_flag_bound[0] / k1_flag_device:.1%} of it")
 
     # 3d. K4 and K5 at 1080p: on the production level-0 maps, then on a
     # random map with ~30% invalid pixels
@@ -667,6 +767,9 @@ def main() -> int:
                            cuda_ms(lambda: fused_post.lr_consistency_plain(disp, disp_r, 1.0, d_eff)))
             times["K5"] = (cuda_ms(lambda: fused_post.fill_invalid_fused(disp, want)),
                            cuda_ms(lambda: fused_post.fill_invalid_plain(disp, want)))
+            device["K4"] = device_ms(lambda: fused_post.lr_consistency_fused(disp, disp_r, 1.0,
+                                                                             d_eff))
+            device["K5"] = device_ms(lambda: fused_post.fill_invalid_fused(disp, want))
     rand_l = torch.rand((H, W), generator=gen, device=dev) * 100
     rand_r = torch.where(torch.rand((H, W), generator=gen, device=dev) < 0.3,
                          rand_l + 5.0, rand_l)
@@ -839,6 +942,23 @@ def main() -> int:
                                                                        sgm_cfg), pr))
     times["K9"] = (cuda_ms(lambda: fused_sgm.wta_from_volume(sums3[2], cfg_nolr)),
                    cuda_ms(lambda: fused_sgm.wta_from_volume_plain(sums3[2], cfg_nolr), pr))
+    # device times: K6 into a volume made once; K8 with its buffer fill; K9
+    vol6 = torch.empty_like(vol3)
+    device["K6"] = device_ms(lambda: fused_sgm.K6.launch(
+        dev, lg.data_ptr(), rg.data_ptr(), None, None, 0, vol6.data_ptr(), 0, H, W, 64,
+        sgm_cfg.window, 0, 0, H), 10)
+    del vol6
+    k8_outs = [torch.empty((H, W), device=dev) for _ in range(3)]
+    k8_right = torch.empty((H, W), dtype=torch.int64, device=dev)
+
+    def k8_alone():
+        k8_right.fill_(-1)
+        fused_sgm.K8.launch(dev, vol3.data_ptr(), acc3.data_ptr(), 0,
+                            *(o.data_ptr() for o in k8_outs), k8_right.data_ptr(), 64, H, W,
+                            p1, p2, 0, 1.0)
+
+    device["K8"] = device_ms(k8_alone, 10)
+    device["K9"] = device_ms(lambda: fused_sgm.wta_from_volume(sums3[2], cfg_nolr))
     scratch = vol3.clone()
     k7_dirs = {}  # arrow -> (one wrapper call, device time per launch) ms
     for axis, reverse, shift in fused_sgm.directions(8):
@@ -850,6 +970,7 @@ def main() -> int:
         print(f"  K7 {a} {H}x{W} D=64: {k7_dirs[a][0]:.4f} ms one call, {k7_dirs[a][1]:.4f} ms "
               f"per launch over {DEVICE_LAUNCHES} back to back")
     del scratch
+    device["K7"] = float(np.mean([k7_dirs[a][1] for a in ("→x", "←x", "↓y")]))
     for name in ("K6", "K7", "K8", "K9"):
         print(f"  {name} {H}x{W} D=64: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (plain: median of {pr})")
@@ -1009,11 +1130,14 @@ def main() -> int:
         cuda_ms(lambda: fused_sgm.scan_direction_carry(*mid, p1, p2, reverse=False)),
         cuda_ms(lambda: fused_sgm.scan_direction_carry_plain(*mid, p1, p2, reverse=False),
                 PLAIN_SGM_REPS))
+    device["K10"] = device_ms(lambda: fused_sgm.scan_direction_carry(*mid, p1, p2,
+                                                                     reverse=False))
     print(f"  K10 ↓y {th3}x{W} D=64 shard: kernel {times['K10'][0]:.4f} ms, plain "
           f"{times['K10'][1]:.4f} ms (plain: median of {PLAIN_SGM_REPS})")
 
-    # 3i. the edges of K7, K10 and K11
-    print("== K7, K10 and K11 on ragged shapes, every D, offset views (vs plain versions)")
+    # 3i. the edges of K1, K7, K8, K10 and K11
+    print("== K1, K7, K8, K10 and K11 on ragged shapes, every D, offset views "
+          "(vs plain versions)")
     check_edges(dev, err)
 
     # 4a. the SAD slice end to end, through the user's entry point
@@ -1467,26 +1591,29 @@ def main() -> int:
         "path 3, sgm-pallas 2 directions D=64 window 5 LR"][2])
     origin["K10"] = ("path 3 sharded, 3 shards, 4 directions", sharded_launches)
     origin["K11"] = ("rig path", rig_launches)
+    device["K1"] = kernel_only[("make_pair", "census", "K1")]
+    device["K2"] = kernel_only[("make_pair", "census", "K2")]
+    device["K11"] = k11_device[0]
     print(f"== kernels against their bounds (H100 SXM peaks: {PEAK_BYTES / 1e12} TB/s, "
           f"{PEAK_F32 / 1e12} TFLOP/s f32), card: {smi[0]}")
     for n in KERNELS:
-        print(f"  {n}: {times[n][0]:.4f} ms, bound {bounds[n][0]:.4f} ms ({bounds[n][1]}), "
-              f"{bounds[n][0] / times[n][0]:.1%} of it")
+        print(f"  {n}: {times[n][0]:.4f} ms a call, {device[n]:.4f} ms on the device, bound "
+              f"{bounds[n][0]:.4f} ms ({bounds[n][1]}), {bounds[n][0] / device[n]:.1%} of the "
+              f"device time")
     summary = {"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": origin[n][1][n], "path": origin[n][0], "max_abs_err": errs[n],
          "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": bounds[n][0],
-         "bound_by": bounds[n][1], "library_ms": library_ms.get(n)}
+         "bound_by": bounds[n][1], "library_ms": library_ms.get(n), "device_ms": device[n]}
         for n, k in KERNELS.items()
     ]}
     extra = {
-        "K1": {"kernel_only_ms": kernel_only[("make_pair", "census", "K1")],
-               "flagship_ms": times["K1 sad, 1080x1920 D=128 + K4"][0],
-               "flagship_bound_ms": flagship_bound[0], "flagship_bound_by": flagship_bound[1]},
-        "K2": {"kernel_only_ms": kernel_only[("make_pair", "census", "K2")]},
+        "K1": {"flagship_ms": times["K1 sad, 1080x1920 D=128 + K4"][0],
+               "flagship_device_ms": k1_flag_device, "flagship_bound_ms": k1_flag_bound[0],
+               "flagship_bound_by": k1_flag_bound[1]},
         "K7": {"ms_by_direction": {a: t[0] for a, t in k7_dirs.items()},
                "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()}},
-        "K11": {"device_ms": k11_device[0], "library_device_ms": k11_device[1]},
+        "K11": {"library_device_ms": k11_device[1]},
     }
     for n, entry in zip(KERNELS, summary["kernels"]):
         entry.update(extra.get(n, {}))

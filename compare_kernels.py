@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's scan (K7, K10) and remap (K11) kernels against an earlier
-version of them, in turns, on one NVIDIA GPU.
+"""Time the port's matcher (K1), scan (K7, K8, K10) and remap (K11) kernels
+against an earlier version of them, in turns, on one NVIDIA GPU.
 
     python3 compare_kernels.py --old-csrc DIR [--out FILE]
 
@@ -9,6 +9,19 @@ version of them, in turns, on one NVIDIA GPU.
 its sources are built with the same ``nvcc`` flags into a library of their
 own beside the current one. Both versions run on the same inputs:
 
+- K1 (SAD, window 9) at the ``flagship()`` shape, 1080×1920 with D=128, on
+  ``chip_smoke.make_pair``; at the 135×240 coarse level with D=16, SAD and
+  census (window 7, two planes given); on the first of the 4 row shards of
+  the sharded ``flagship()`` (286 rows, ``g_row0`` = −8). The old version
+  is called through the C interface that wrote the right view as f32 (the
+  sources before the packed one), the new through the current one, whose
+  packed u64 buffer a call fills first (timed with the fill); the outputs
+  are compared decoded;
+- K6 at 1080×1920, D=64, window 5 (it shares ``csrc/common.cuh`` with K1
+  and K8);
+- K8 at 1080×1920, D=64, f32 and bf16, and at 135×240, D=16, on the
+  volume and 3-direction sum that path 3 (``sgm-pallas``, 4 directions,
+  window 5) and its coarse level give it, each with its buffer fill;
 - K7 in each of the 8 directions at 1080×1920, D=64, f32, onto an
   accumulator, and three K7 launches of the 135×240 D=16 coarse level;
 - K10 on one 360×1920 shard, D=64, seeded from a carry;
@@ -95,7 +108,9 @@ def main() -> int:
         return 2
     import chip_smoke
     from stepth_tpu_torch import kernels
-    from stepth_tpu_torch.match import fused_sgm
+    from stepth_tpu_torch.config import MatchConfig, SGMConfig
+    from stepth_tpu_torch.match import dense, fused_dense, fused_sgm, pyramid
+    from stepth_tpu_torch.match.sgm import penalties
     from stepth_tpu_torch.ops import fused_remap, rectify
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -124,6 +139,106 @@ def main() -> int:
             got.append([o.clone() for o in outs])
         if not all(torch.equal(a, b) for a, b in zip(*got)):
             raise AssertionError(f"{k.name}: old and new outputs differ")
+
+    def same_runs(name, fns, outs):
+        """Run each version once; raise unless the outputs ``outs()`` gives
+        after each are equal."""
+        got = []
+        for fn in fns.values():
+            fn()
+            torch.cuda.synchronize()
+            got.append([o.clone() for o in outs()])
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise AssertionError(f"{name}: old and new outputs differ")
+
+    def k1_versions(name, lg, rg, D, planes=None, g_row0=0, g_h=None):
+        """K1 without uniqueness (its flagship()/coarse use), old against new,
+        outputs held equal (disp, right view, cbest, valid), then timed."""
+        h, w = lg.shape
+        old_out = [torch.full_like(lg, float("nan")) for _ in range(4)]
+        new_out = [torch.full_like(lg, float("nan")) for _ in range(3)]
+        right = torch.empty((h, w), dtype=torch.int64, device=dev)
+        images = ((lg.data_ptr(), rg.data_ptr(), None, None, 0) if planes is None else
+                  (None, None, planes[0].data_ptr(), planes[1].data_ptr(), planes[0].shape[0]))
+        tail = (h, w, D, 9, 0, 0, 1.0, g_row0, h if g_h is None else g_h)
+        old_fn, new_fn = bind(old, fused_dense.K1), bind(kernels.load(), fused_dense.K1)
+
+        def run_old():
+            old_fn(*images, *(o.data_ptr() for o in old_out), *tail)
+
+        def run_new():
+            right.fill_(fused_dense._RIGHT_START)
+            new_fn(*images, new_out[0].data_ptr(), right.data_ptr(), new_out[1].data_ptr(),
+                   new_out[2].data_ptr(), *tail)
+
+        run_old(), run_new()
+        torch.cuda.synchronize()
+        decoded = [new_out[0], (right & 0xFFFFFFFF).to(torch.float32), *new_out[1:]]
+        if not all(torch.equal(a, b) for a, b in zip(old_out, decoded)):
+            raise AssertionError(f"K1 {name}: old and new outputs differ")
+        result[f"K1 {name}, ms"] = turns({"old": run_old, "new": run_new})
+        print(f"K1 {name}: {result[f'K1 {name}, ms']}")
+
+    H, W = 1080, 1920
+    left, right_img = chip_smoke.make_pair(H, W, seed=SEED)
+    lg, rg = (dense.grayscale(a, dev) for a in (left, right_img))
+    k1_versions("sad 1080x1920 D=128 window 9 (flagship)", lg, rg, 128)
+    halo = 8  # flagship()'s sharded halo: window radius + 1, rounded up to 8
+    shard = [torch.cat([t[:1].expand(halo, W), t[:270 + halo]]).contiguous() for t in (lg, rg)]
+    k1_versions("sad 286x1920 D=128 window 9, shard 0 of 4 (g_row0 -8)", *shard, 128,
+                g_row0=-halo, g_h=H)
+    lc_, rc_ = lg, rg
+    for _ in range(3):
+        lc_, rc_ = pyramid.downsample2(lc_), pyramid.downsample2(rc_)
+    k1_versions("sad 135x240 D=16 window 9 (coarse)", lc_, rc_, 16)
+    k1_versions("census 135x240 D=16 window 9, 2 planes given (coarse)", lc_, rc_, 16,
+                dense.census_pair(lc_, rc_, 7))
+
+    # K6 (it shares common.cuh with K1 and K8): path 3's volume, in turns
+    cfg6 = MatchConfig(num_disparities=64, window=5)
+    vol6 = torch.empty((64, H, W), device=dev)
+    a6 = (lg.data_ptr(), rg.data_ptr(), None, None, 0, vol6.data_ptr(), 0, H, W, 64,
+          cfg6.window, 0, 0, H)
+    same(fused_sgm.K6, [vol6], *a6)
+    result["K6 1080x1920 D=64 window 5 f32, ms"] = turns(versions(fused_sgm.K6, *a6))
+    print(f"K6: {result['K6 1080x1920 D=64 window 5 f32, ms']}")
+    del vol6
+
+    # K8 on what path 3 gives it: the window-5 volume and its 3-direction sum
+    def k8_versions(name, vol, acc, cfg):
+        d, h, w = vol.shape
+        p1, p2 = penalties(cfg, SGMConfig(directions=4))
+        outs = [torch.empty((h, w), device=dev) for _ in range(3)]
+        right = torch.empty((h, w), dtype=torch.int64, device=dev)
+        args = (vol.data_ptr(), acc.data_ptr(), int(vol.dtype == torch.bfloat16),
+                *(o.data_ptr() for o in outs), right.data_ptr(), d, h, w, p1, p2, 0, 1.0)
+        fns = {}
+        for v, lib in (("old", old), ("new", kernels.load())):
+            fn = bind(lib, fused_sgm.K8)
+
+            def run(fn=fn):
+                right.fill_(-1)
+                fn(*args)
+
+            fns[v] = run
+        same_runs(f"K8 {name}", fns, lambda: outs + [right])
+        result[f"K8 {name}, ms"] = turns(fns)
+        print(f"K8 {name}: {result[f'K8 {name}, ms']}")
+
+    s4 = SGMConfig(directions=4)
+    for tag, lg_, rg_, cfg in (
+            ("1080x1920 D=64", lg, rg, MatchConfig(num_disparities=64, window=5)),
+            ("135x240 D=16", lc_, rc_, MatchConfig(num_disparities=16, window=9))):
+        p1, p2 = penalties(cfg, s4)
+        for dtype in ((torch.float32, torch.bfloat16) if tag.startswith("1080") else
+                      (torch.float32,)):
+            vol_ = fused_sgm.aggregated_volume(lg_, rg_, cfg, dtype)
+            acc_ = None
+            for axis, rev, sh in fused_sgm.directions(4)[:3]:
+                acc_ = fused_sgm.scan_direction(vol_, acc_, p1, p2, axis=axis, reverse=rev,
+                                                shift=sh)
+            k8_versions(f"{tag} {str(dtype)[6:]}", vol_, acc_, cfg)
+            del vol_, acc_
 
     H, W, D = 1080, 1920, 64
     vol = torch.randint(0, 60, (D, H, W), generator=gen, device=dev).float()

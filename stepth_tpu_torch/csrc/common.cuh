@@ -8,9 +8,9 @@
 //   otherwise: z(k) = ((c(k-r) + c(k-r+1)) + ...) + c(k+r)
 // Only adds are involved, so no FMA contraction can change the result.
 //
-// cost_front_vertical() is the cost front of K1 and K6 (one copy, so the two
-// cannot drift apart), and WtaState the running first-minimum WTA of K1 and
-// K9 (K8 takes the same minima in closed form and shares subpixel_disp()).
+// cost_front_vertical() is K6's cost front (K1 forms the same costs and sums
+// from shared-memory tiles of its own, in the same association), and
+// WtaState the running first-minimum WTA of K1, K8 and K9.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -14,11 +14,11 @@
 // either axis directly.
 //
 // Exactness. Every f32 value is formed by the same ops in the same order as
-// the reference: K6 uses K1's cost front (common.cuh); a scan step is
-// min_l = min_d prev, cand = min(prev, min(prev[d-1], prev[d+1]) + p1),
-// cand = min(cand, min_l + p2), L = (c + cand) - min_l (only adds: no FMA
-// can form), out = acc + L rounded once to the volume type; minima are exact
-// in any order. The carry stays f32.
+// the reference: K6 uses common.cuh's cost front, in K1's association; a
+// scan step is min_l = min_d prev, cand = min(prev, min(prev[d-1],
+// prev[d+1]) + p1), cand = min(cand, min_l + p2), L = (c + cand) - min_l
+// (only adds: no FMA can form), out = acc + L rounded once to the volume
+// type; minima are exact in any order. The carry stays f32.
 //
 // Scans as independent chains. A direction with step (dy, dx) is a set of
 // 1-D chains: rows (dy = 0), columns (dx = 0) or diagonals (both +-1), each
@@ -26,9 +26,8 @@
 // reference's zero-filled carry shift. One warp walks one chain with the D
 // path costs spread over its lanes (lane l holds d = l + 32 j, j < ND): min_l
 // is a butterfly reduction, d +- 1 come by shuffles, d >= D lanes hold BIG.
-// K8 reads its inputs straight from device memory, one step ahead.
 //
-// K7 (and K10) stage their inputs through shared memory instead. Read by a
+// K7, K8 and K10 stage their inputs through shared memory. Read by a
 // warp with d on its lanes, one step of one chain touches 32 planes H·W
 // apart: 32 sectors for 128 useful bytes, one DRAM latency per serial step.
 // So a block owns a band of neighbouring chains that is contiguous in
@@ -60,13 +59,22 @@
 // split scan relayed through K10 equals one continuous K7 scan bit for bit.
 // Bound: bytes, like K7's, plus the two [D, w] f32 carries.
 //
-// K8's right view needs the costs of other columns, which other warps hold:
-// each lane offers agg(x, d) to column u = x - d of a u64 [H, W] buffer by
-// atomicMin of (f32 bits << 32) | d. Path costs are >= +0 when p1, p2 >= 0,
-// so the bits order as the values and the smallest d wins a tie, whatever
-// order the warps run in — the reference's first minimum. A plain read
-// first skips candidates that cannot win (values only decrease, so a stale
-// read is safe). The wrapper decodes the low word.
+// K8 is K7's ↑y scan (the vertical staging: a band of R columns, P rows a
+// stage, the same ring) with the WTA in place of the write-back. The warps
+// scan the stage and leave agg = acc + L (f32, never rounded to the volume
+// type) in shared memory; after a barrier one thread per (row, column) of
+// the stage runs WtaState (common.cuh, K9's) over its D costs, while the
+// others take the right view: each (row, u) the band reaches gets the first
+// minimum over its columns x of agg(x, x - u), as (f32 bits << 32) | d,
+// and one global atomicMin into a u64 [H, W] buffer. Path costs are >= +0
+// when p1, p2 >= 0, so the bits order as the values and the smallest d
+// wins a tie, whatever order the blocks run in — the reference's first
+// minimum. A plain read before each atomicMin skips candidates that cannot
+// win (values only decrease, so a stale read is safe). The wrapper decodes
+// the low word. Bound: the bytes of vol and acc read once, like a K7 launch
+// without its output volume. What sets K8's pace on an H100 is the warps'
+// serial step: taking the WTA off it (shuffle reductions a step, a division
+// on the winner's lane) was the largest gain among the variants timed.
 
 #include <cstdint>
 #include <type_traits>
@@ -113,7 +121,7 @@ __global__ void __launch_bounds__(VNT) sgm_volume_kernel(
   }
 }
 
-// ---- the scan recurrence, shared by K7 and K8 ----------------------------
+// ---- the scan recurrence, shared by K7, K8 and K10 -----------------------
 
 __device__ __forceinline__ float warp_min(float v) {
 #pragma unroll
@@ -144,8 +152,6 @@ __device__ __forceinline__ void scan_step(const float (&prev)[ND], const float (
     L[j] = (c[j] + cand) - m;
   }
 }
-
-constexpr int SWARPS = 8;  // K8: chains (warps) per block
 
 // ---- K7 and K10: one direction, staged through shared memory -------------
 
@@ -406,109 +412,119 @@ __global__ void __launch_bounds__(G::NT) sgm_scan_kernel(
 
 // ---- K8: the final up-scan with the WTA fused in -------------------------
 
-template <typename T, int ND>
-__global__ void __launch_bounds__(SWARPS * 32) sgm_scan_wta_kernel(
+// K7's vertical staging (dy = -1, dx = 0: a band of R neighbouring columns,
+// P rows a stage, a ring of cp.async slots) with the WTA in place of the
+// write-back. After the slots, the stage's agg [P][R][D + 1] (f32; the odd
+// stride puts the R columns of one (row, d) in distinct banks).
+__host__ __device__ constexpr int wta_stride(int D) { return D + 1; }
+
+template <typename T, int ND, class G>
+__global__ void __launch_bounds__(G::NT) sgm_scan_wta_kernel(
     const T* __restrict__ vol, const T* __restrict__ acc, float* __restrict__ disp,
     float* __restrict__ cbest, float* __restrict__ uok,
     unsigned long long* __restrict__ right, int D, int h, int w, float p1, float p2,
     int use_uniq, float uniq1p) {
-  const int x = blockIdx.x * SWARPS + threadIdx.x / 32;
+  static_assert(G::P * G::R < G::NT, "threads left for the right view");
+  extern __shared__ uint32_t scan_smem[];
+  const int k = threadIdx.x / 32;  // this warp's column in the band
   const int lane = threadIdx.x & 31;
-  if (x >= w) return;  // the whole warp leaves together
-  const size_t plane = (size_t)h * w;
-  const float inf = __int_as_float(0x7f800000);
-  float prev[ND], c[ND], a[ND], L[ND], agg[ND];
+  ScanGeo g;
+  g.init(h, w, -1, 0, G::NCH);
+  const long plane = (long)h * w;
+  const int slot_words = 2 * D * G::DSTR;  // vol region, then acc region
+  const uint32_t smem_s = (uint32_t)__cvta_generic_to_shared(scan_smem);
+  const int DS = wta_stride(D);
+  float* stash = reinterpret_cast<float*>(scan_smem + G::NST * slot_words);
+  const int x = g.c0 + k;
+  float prev[ND], c[ND], a[ND], L[ND];
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     prev[j] = lane + 32 * j < D ? 0.f : kBig;
     c[j] = 0.f;
     a[j] = 0.f;
   }
-  size_t o = (size_t)(h - 1) * w + x;
+  const int nst = (g.n + G::S - 1) / G::S;
+  auto copy = [&](int st) {
+    const uint32_t base = smem_s + 4u * (st % G::NST) * slot_words;
+    scan_copy<G, false>(vol, base, g, st, D, plane);
+    scan_copy<G, false>(acc, base + 4u * D * G::DSTR, g, st, D, plane);
+  };
 #pragma unroll
-  for (int j = 0; j < ND; ++j) {
-    const int d = lane + 32 * j;
-    if (d < D) {
-      c[j] = to_f32(vol[d * plane + o]);
-      a[j] = to_f32(acc[d * plane + o]);
-    }
+  for (int st = 0; st < G::NST - 1; ++st) {
+    if (st < nst) copy(st);
+    cp_async_commit();
   }
-  for (int y = h - 1; y >= 0; --y) {
-    float cn[ND], an[ND];
-    const size_t on = o - w;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = lane + 32 * j;
-      cn[j] = 0.f;
-      an[j] = 0.f;
-      if (y > 0 && d < D) {
-        cn[j] = to_f32(vol[d * plane + on]);
-        an[j] = to_f32(acc[d * plane + on]);
-      }
-    }
-    scan_step<ND>(prev, c, L, lane, p1, p2);
-    // agg = acc + L in f32 (never rounded to the volume type); d >= D: +inf
-    float bv = inf;
-    int bi = 0;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = lane + 32 * j;
-      agg[j] = d < D ? a[j] + L[j] : inf;
-      prev[j] = d < D ? L[j] : kBig;
-      if (agg[j] < bv) { bv = agg[j]; bi = d; }  // ascending d: first minimum
-    }
-    // first minimum over the warp: the smaller d wins a tie
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov < bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-    }
-    const int b = bi;
-    // the sequential loop's neighbours: agg[b - 1], agg[b + 1] (used only for
-    // interior winners, where both exist)
-    float cm1 = 0.f, cp1 = kBig;
-    const int dm = b - 1 < 0 ? 0 : b - 1;
-    const int dp = b + 1 < D ? b + 1 : D - 1;
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const float vm = __shfl_sync(kFull, agg[j], dm & 31);
-      const float vp = __shfl_sync(kFull, agg[j], dp & 31);
-      if (j == (dm >> 5)) cm1 = vm;
-      if (j == (dp >> 5)) cp1 = vp;
-    }
-    // uniqueness: the best cost outside [b - 1, b + 1] (BIG if none)
-    float second = kBig;
-    if (use_uniq) {
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<G::NST - 2>();
+    __syncthreads();  // stage st has landed; stage st - 1's agg has been read
+    if (st + G::NST - 1 < nst) copy(st + G::NST - 1);
+    cp_async_commit();
+    const uint32_t* slot = scan_smem + (st % G::NST) * slot_words;
+    const T* tv = reinterpret_cast<const T*>(slot);
+    const T* ta = reinterpret_cast<const T*>(slot + D * G::DSTR);
+    for (int s = 0; s < G::S; ++s) {
+      const int t = st * G::S + s;
+      if (t >= g.n) break;
+      if (x >= w) continue;  // this chain is outside the image
+      const long roff = (long)g.row_of_step(t) * w + g.c0;
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         const int d = lane + 32 * j;
-        if (d < D && (d < b - 1 || d > b + 1)) second = fminf(second, agg[j]);
+        if (d < D) {
+          const long off = d * plane + roff;
+          const int wi = (d * G::DSTR + s * G::RUNW) * G::EPW + k;
+          c[j] = to_f32(tv[wi + par(vol, off)]);
+          a[j] = to_f32(ta[wi + par(acc, off)]);
+        }
       }
-      second = warp_min(second);
-    }
-    if (lane == 0) {
-      disp[o] = subpixel_disp(cm1, bv, cp1, b, D);
-      cbest[o] = bv;
-      uok[o] = (!use_uniq || bv * uniq1p <= second) ? 1.f : 0.f;
-    }
-    // right view: agg(x, d) is a candidate of column x - d
+      scan_step<ND>(prev, c, L, lane, p1, p2);
+      // agg = acc + L in f32, never rounded to the volume type
+      float* sk = stash + (s * G::R + k) * DS;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const int d = lane + 32 * j;
-      if (d < D && x - d >= 0) {
-        const unsigned long long key =
-            ((unsigned long long)__float_as_uint(agg[j]) << 32) | (unsigned)d;
-        unsigned long long* dst = right + (size_t)y * w + (x - d);
-        if (key < *dst) atomicMin(dst, key);
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        prev[j] = d < D ? L[j] : kBig;
+        if (d < D) sk[d] = a[j] + L[j];
       }
     }
-#pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      c[j] = cn[j];
-      a[j] = an[j];
+    __syncthreads();  // the stage's agg is in place
+    if (threadIdx.x < G::P * G::R) {
+      // the WTA of one (row, column) of the stage: WtaState, as K9's, over
+      // its D costs in ascending d
+      const int s = threadIdx.x / G::R, kk = threadIdx.x % G::R;
+      const int t = st * G::S + s, xx = g.c0 + kk;
+      if (t < g.n && xx < w) {
+        const float* sk = stash + (s * G::R + kk) * DS;
+        WtaState wst;
+        wst.init();
+        for (int d = 0; d < D; ++d) wst.update(sk[d], d, use_uniq);
+        const size_t at = (size_t)g.row_of_step(t) * w + xx;
+        disp[at] = wst.disp(D);
+        cbest[at] = wst.cb;
+        uok[at] = wst.valid(use_uniq, uniq1p);
+      }
+    } else {
+      // right view: for each (row, u) the band reaches, the first minimum of
+      // agg(x, x - u) over its columns x (ascending, so d ascends), by the
+      // packed key (f32 bits << 32) | d; then one global atomicMin
+      const int RB = G::R + D - 1;  // u in [c0 - D + 1, c0 + R)
+      for (int i = threadIdx.x - G::P * G::R; i < G::P * RB; i += G::NT - G::P * G::R) {
+        const int s = i / RB, u = g.c0 - D + 1 + (i - s * RB);
+        if (st * G::S + s >= g.n || u < 0) continue;
+        const int k_lo = max(0, u - g.c0), k_hi = min(min(G::R, w - g.c0), u - g.c0 + D);
+        unsigned long long best = ~0ull;
+        for (int kk = k_lo; kk < k_hi; ++kk) {
+          const int d = g.c0 + kk - u;
+          const unsigned long long key =
+              ((unsigned long long)__float_as_uint(stash[(s * G::R + kk) * DS + d]) << 32) |
+              (unsigned)d;
+          best = key < best ? key : best;
+        }
+        if (best == ~0ull) continue;
+        unsigned long long* gp = right + (size_t)g.row_of_step(st * G::S + s) * w + u;
+        if (best < *gp) atomicMin(gp, best);
+      }
     }
-    o = on;
   }
 }
 
@@ -589,13 +605,32 @@ struct ScanLaunch {
   }
 };
 
+// K8's tiling: K7's vertical one, with a 2-slot ring where 3 slots and the
+// stage's agg would not fit the 227 KB a block may use (f32 at D in 97-128
+// and 225-256).
+template <typename T, int ND, int NST>
+using WtaTileN = ScanTile<T, ScanPick<T, ND, false>::type::R, ScanPick<T, ND, false>::type::P,
+                          NST, false>;
+
+template <class G>
+constexpr size_t scan_wta_smem(int D) {
+  return sizeof(uint32_t) * G::NST * 2 * (size_t)D * G::DSTR +
+         sizeof(float) * (size_t)G::P * G::R * wta_stride(D);
+}
+
+template <typename T, int ND>
+using WtaTile = typename std::conditional<(scan_wta_smem<WtaTileN<T, ND, 3>>(32 * ND) <=
+                                           232448),
+                                          WtaTileN<T, ND, 3>, WtaTileN<T, ND, 2>>::type;
+
 template <typename T, int ND>
 struct ScanWtaLaunch {
   static int run(const void* vol, const void* acc, float* disp, float* cbest, float* uok,
                  unsigned long long* right, int D, int h, int w, float p1, float p2,
                  int use_uniq, float uniq1p, void* stream) {
-    auto kern = sgm_scan_wta_kernel<T, ND>;
-    STEPTH_LAUNCH(kern, (w + SWARPS - 1) / SWARPS, SWARPS * 32, 0, stream,
+    using G = WtaTile<T, ND>;
+    auto kern = sgm_scan_wta_kernel<T, ND, G>;
+    STEPTH_LAUNCH(kern, (w + G::NCH - 1) / G::NCH, G::NT, scan_wta_smem<G>(D), stream,
                   (const T*)vol, (const T*)acc, disp, cbest, uok, right, D, h, w, p1, p2,
                   use_uniq, uniq1p);
   }

@@ -11,7 +11,12 @@ descriptor there (column 0's descriptor where ``x − d < 0``), a zero-padded
 ``costR(x, d) = costL(x + d, d)``.
 
 Census descriptors are computed once per image in torch
-(``dense.census_planes``, int32 [P, H, W]) and handed to the kernel. With
+(``dense.census_planes``, int32 [P, H, W]) and handed to the kernel. The
+kernel returns its right view packed, ``(f32 cost bits << 32) | d`` per
+pixel in an int64 buffer that :func:`raw_match` fills first and decodes
+(its blocks merge the right view by ``atomicMin`` on that buffer). It takes
+windows up to 17 and census windows up to 11 (4 planes); :func:`raw_match`
+raises for larger ones on CUDA tensors. With
 ``cfg.lr_threshold`` set, the fourth output also carries the LR check: the
 Pallas kernel sweeps it in-kernel, but a CUDA block cannot see the right-view
 disparity of other blocks' columns, so :func:`raw_match` runs K4 right after
@@ -30,6 +35,10 @@ from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import dense, fused_post
 
 _BIG = 1e30
+_MAX_RADIUS = 8  # the kernel's box sums are unrolled for windows up to 17
+_MAX_PLANES = 4  # census descriptors of up to 128 bits (census windows up to 11)
+# (bits(f32 1e30) << 32) | 0: the right view's start value, candidate "BIG at d = 0"
+_RIGHT_START = 0x7149F2CA << 32
 
 K1 = kernels.Kernel(
     "K1 fused_dense",
@@ -211,18 +220,26 @@ def raw_match(
     D = cfg.num_disparities
     if D < 1 or cfg.window < 1:
         raise ValueError(f"need D ≥ 1 and window ≥ 1, got {D}, {cfg.window}")
-    outs = [torch.empty_like(lg) for _ in range(4)]
+    if cfg.window // 2 > _MAX_RADIUS:
+        raise ValueError(f"raw_match: the kernel takes windows up to {2 * _MAX_RADIUS + 1}, "
+                         f"got {cfg.window}")
+    disp, cbest, valid = (torch.empty_like(lg) for _ in range(3))
+    # the right view's packed minima (f32 bits << 32) | d, from (BIG, d = 0)
+    right = torch.full((h, w), _RIGHT_START, dtype=torch.int64, device=lg.device)
     images = (lg.data_ptr(), rg.data_ptr(), None, None, 0)
     if cfg.cost == "census":
         lc, rc = dense.census_pair(lg, rg, cfg.census_window)
+        if lc.shape[0] > _MAX_PLANES:
+            raise ValueError(f"raw_match: the kernel takes census windows up to 11, got "
+                             f"{cfg.census_window}")
         images = (None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0])
     uniq = cfg.uniqueness
     K1.launch(
-        lg.device, *images, *(o.data_ptr() for o in outs),
-        h, w, D, cfg.window, int(cfg.cost == "ssd"), int(uniq is not None),
+        lg.device, *images, disp.data_ptr(), right.data_ptr(), cbest.data_ptr(),
+        valid.data_ptr(), h, w, D, cfg.window, int(cfg.cost == "ssd"), int(uniq is not None),
         1.0 + (uniq or 0.0), int(g_row0), h if g_h is None else int(g_h),
     )
-    disp, disp_r, cbest, valid = outs
+    disp_r = (right & 0xFFFFFFFF).to(torch.float32)
     valid = _lr_valid(valid, disp, disp_r, cfg, fused_post.lr_consistency_fused)
     return disp, disp_r, cbest, valid
 

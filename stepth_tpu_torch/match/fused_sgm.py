@@ -12,8 +12,8 @@ backend).
   accumulator is updated in place (the reference aliases it too); the
   volume is never transposed.
 - K8 :func:`scan_wta_direction`: the final ↑y scan with the whole WTA fused
-  in — ``agg = acc + L`` summed in f32 and never stored — returning
-  ``(disp, disp_r, cbest, uok)``. The right view needs other columns' costs:
+  in — ``agg = acc + L`` summed in f32, kept a stage at a time in shared
+  memory and never written out — returning ``(disp, disp_r, cbest, uok)``. The right view needs other columns' costs:
   the kernel merges ``(f32 bits << 32) | d`` into a u64 buffer with
   ``atomicMin`` (path costs are ≥ 0 for ``p1, p2 ≥ 0``, which the wrapper
   checks), and the wrapper decodes it.

@@ -137,3 +137,79 @@ def test_census_and_lr_kernel_match_plain_on_card(cuda, cost, d, h, w):
     got = fused_dense.raw_match(lg, rg, cfg)
     torch.cuda.synchronize()
     _outputs_equal(fused_dense.raw_match_plain(lg, rg, cfg), got)
+
+
+# ---- the right view's merge across blocks ----------------------------------
+
+
+def _merged_right_view(lg, rg, cfg, block):
+    """K1's right view as the kernel merges it: each block of ``block``
+    columns keeps, per (row, u), the minimum of the packed keys ``(f32 bits
+    << 32) | d`` that its own columns x = u + d offer; the blocks' minima
+    are then merged by a packed u64 minimum from the start value (BIG at
+    d = 0). Returns the low words, the disparities, as f32[H, W]."""
+    planes, row_ok = fused_dense.cost_inputs(lg, rg, cfg)
+    h, w = lg.shape
+    costs = [fused_dense.box_cost(lg, rg, planes, cfg, d, row_ok)
+             for d in range(cfg.num_disparities)]
+    merged = torch.full((h, w), fused_dense._RIGHT_START, dtype=torch.int64)
+    for x0 in range(0, w, block):
+        part = torch.full((h, w), fused_dense._RIGHT_START, dtype=torch.int64)
+        for d, cost in enumerate(costs):
+            if max(x0, d) >= min(x0 + block, w):
+                continue
+            xs = torch.arange(max(x0, d), min(x0 + block, w))
+            key = (cost[:, xs].contiguous().view(torch.int32).to(torch.int64) << 32) | d
+            part[:, xs - d] = torch.minimum(part[:, xs - d], key)
+        merged = torch.minimum(merged, part)
+    return (merged & 0xFFFFFFFF).to(torch.float32)
+
+
+@pytest.mark.parametrize("block", [8, 24, 56, 128])
+@pytest.mark.parametrize("cost", ["sad", "census"])
+def test_right_view_block_merge_matches_plain(rng, cost, block):
+    """The per-block minima and their packed u64 merge give the plain
+    version's right view, for blocks narrower than D (40) and one block
+    wider than the image."""
+    left, right = make_pair(rng, h=20, w=100, shift=33)
+    lg, rg = torch.from_numpy(left.astype(np.float32)), torch.from_numpy(right.astype(np.float32))
+    cfg = MatchConfig(num_disparities=40, window=9, cost=cost, census_window=5,
+                      lr_threshold=None)
+    want = fused_dense.raw_match_plain(lg, rg, cfg)[1]
+    assert (want > 20).float().mean() > 0.5  # most winners lie in other blocks
+    np.testing.assert_array_equal(np_(_merged_right_view(lg, rg, cfg, block)), np_(want))
+
+
+# K1's edge cases on the card (``chip_smoke.K1_EDGES`` repeats them there):
+# (h, w, D, window, cost, census_window, uniqueness, g_row0, g_h, shift)
+K1_EDGES = [
+    (37, 300, 1, 9, "sad", 7, None, 0, None, 0),
+    (40, 100, 16, 9, "census", 5, 0.1, 0, None, 5),
+    (40, 300, 127, 9, "sad", 7, None, 0, None, 120),
+    (33, 257, 128, 9, "census", 7, 0.1, 0, None, 100),
+    (20, 100, 129, 7, "ssd", 7, None, 0, None, 30),
+    (24, 150, 200, 5, "census", 9, None, 0, None, 140),
+    (50, 260, 64, 9, "sad", 7, 0.1, -8, 38, 60),
+    (45, 131, 48, 9, "census", 7, None, -3, 40, 40),
+    (1080, 515, 129, 9, "census", 9, 0.1, 0, None, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, D, window, cost, census_window, uniqueness, g_row0, g_h, shift",
+                         K1_EDGES)
+def test_kernel_edges_match_plain_on_card(cuda, h, w, D, window, cost, census_window,
+                                          uniqueness, g_row0, g_h, shift):
+    """K1 bit-equal to its plain version where the main paths do not go: D
+    from 1 to 200, w below D and below a tile, w not a multiple of the tile
+    width, right-view winners one or two tiles away, census with 1-3
+    planes, row shards with g_row0 < 0 and g_row0 + h > g_h."""
+    rng = np.random.default_rng(D)
+    left = rng.integers(0, 256, (h, w)).astype(np.float32)
+    right = np.roll(left, -shift, axis=1) + rng.integers(0, 3, (h, w)).astype(np.float32)
+    lg, rg = torch.as_tensor(left, device=cuda), torch.as_tensor(right, device=cuda)
+    cfg = MatchConfig(num_disparities=D, window=window, cost=cost, census_window=census_window,
+                      uniqueness=uniqueness, lr_threshold=None)
+    got = fused_dense.raw_match(lg, rg, cfg, 16, g_row0, g_h)
+    torch.cuda.synchronize()
+    _outputs_equal(fused_dense.raw_match_plain(lg, rg, cfg, 16, g_row0, g_h), got)

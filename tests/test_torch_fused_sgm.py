@@ -188,6 +188,28 @@ def test_scan_edges_match_plain_on_card(cuda, D, dtype, acc_mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("uniqueness", [None, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 16, 33, 64, 128])
+def test_scan_wta_edges_match_plain_on_card(cuda, D, dtype, uniqueness):
+    """K8 bit-equal to its plain version on every D class of its fused path,
+    with h and w below the kernel's band (16 columns) and stage (2-16 rows),
+    down to one row and one column (``chip_smoke.K8_EDGES`` repeats these
+    cases on the card)."""
+    rng = np.random.default_rng(D)
+    cfg = MatchConfig(num_disparities=D, window=5, uniqueness=uniqueness)
+    for h in (1, 2, 9):
+        for w in (1, 17, 300):
+            vol, acc = (torch.from_numpy(rng.integers(0, hi, (D, h, w)).astype(np.float32))
+                        .to(cuda).to(dtype) for hi in (50, 500))
+            want = fused_sgm.scan_wta_direction_plain(vol, acc, 25.0, 100.0, cfg)
+            got = fused_sgm.scan_wta_direction(vol, acc, 25.0, 100.0, cfg)
+            torch.cuda.synchronize()
+            for a, b in zip(want, got):
+                assert torch.equal(a, b), (h, w)
+
+
+@pytest.mark.cuda
 def test_scan_wta_rejects_negative_penalties_on_card(cuda):
     cfg = MatchConfig(num_disparities=8, window=5)
     _, _, vol = _card_volume(cuda, cfg, torch.float32, 16, 64)
