@@ -40,7 +40,15 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       continuous K7 scan (output) and its plain version (final carry); K10
       against its plain version on the middle shard from the relayed
       carry; at 70×300, D=24, D=144 and bf16;
-   i. the edges of the redesigned kernels (``check_edges``): K1 on
+   i. the edges of the redesigned kernels (``check_cost_front_edges``, then
+      ``check_edges``): K6 on ``K6_EDGES`` (D from 1 to 200, windows 1-17
+      and two above, SAD, SSD, census with 1-3 and 7 planes, f32 and bf16,
+      w below D, h below the tile, row shards) and K2 with its right-view
+      emit on ``K2_EDGES`` (R = 1, 2, 4, windows 5/7/9, census with 2, 3
+      and 6 planes, SAD and SSD, ``lr``
+      on and off, plans with bases below 0 and at or beyond w - R, nw = 0,
+      1 and above K, ``tile_rows`` 8/24/64, w = 130 and w < 128, a shard
+      with ``g_row0`` < 0); K1 on
       ``K1_EDGES`` (D from 1 to 200, w below D and below a tile, w not a
       multiple of the tile width, right-view winners one or two tiles
       away, census with 1–3 planes, row shards with ``g_row0`` < 0 and
@@ -106,7 +114,8 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    Device times (``device_ms``: 50 launches captured in one CUDA graph,
    its replay between CUDA events; 10 for K6 and K8) beside the one-call
    times, for every kernel: K1 and K2 launched on census planes computed
-   beforehand, so that their bounds meet a time of the same work, K1 and
+   beforehand, so that their bounds meet a time of the same work (K2 on
+   both scenes: ``box`` plans multi-window tiles at depth edges), K1 and
    K8 with the fill of their right-view buffer, K7 per direction, K11
    against ``grid_sample``; and K1 alone at the ``flagship()`` shape
    against its bound there.
@@ -336,6 +345,122 @@ K1_EDGES = (
 K8_EDGES = [(D, dtype, uniq, h, w) for D in (1, 16, 33, 64, 128)
             for dtype in (torch.float32, torch.bfloat16) for uniq in (None, 0.1)
             for h in (1, 2, 9) for w in (1, 17, 300)]
+
+# K6's: D from 1 to 200; windows 1-17 and two above 17 (the run-time radius);
+# SAD, SSD, census with 1-3 planes (census windows 5, 7, 9) and with 7
+# (census window 15: tiles too large for shared memory); f32 and bf16;
+# w below D and not a multiple of the 128-column tile; h below the 8-row
+# tile; row shards with g_row0 < 0 and g_row0 + h > g_h, or g_row0 > 0
+# (h, w, D, window, cost, census_window, dtype, g_row0, g_h)
+K6_EDGES = (
+    (37, 300, 1, 5, "sad", 7, torch.float32, 0, None),
+    (20, 100, 16, 9, "census", 5, torch.bfloat16, 0, None),
+    (9, 40, 33, 3, "ssd", 7, torch.float32, 0, None),
+    (5, 131, 64, 7, "census", 7, torch.bfloat16, 0, None),
+    (24, 257, 128, 11, "census", 9, torch.float32, -4, 18),
+    (30, 130, 200, 17, "sad", 7, torch.bfloat16, 0, None),
+    (12, 300, 64, 1, "sad", 7, torch.float32, 0, None),
+    (16, 129, 33, 21, "census", 9, torch.float32, -3, 10),
+    (40, 256, 16, 5, "ssd", 7, torch.bfloat16, 6, 40),
+    (3, 600, 100, 25, "sad", 7, torch.float32, 0, None),
+    (7, 1, 16, 5, "sad", 7, torch.float32, 0, None),
+    (20, 140, 16, 17, "census", 15, torch.bfloat16, 0, None),
+)
+# K2's: R = 1, 2, 4; windows 5, 7, 9; census and SAD (and SSD), census with
+# 6 planes (tiles too large for shared memory); the right view on and off; plans with bases below 0, at and beyond w - R, nw = 0, 1
+# and above K, and one from a stepped prior; tile_rows 8, 24, 64; w = 130
+# and w < 128; row shards with g_row0 < 0
+# (h, w, R, window, cost, census_window, lr, tile_rows, g_row0, g_h, plan)
+K2_EDGES = (
+    (24, 200, 2, 9, "census", 7, True, 8, 0, None, "negative"),
+    (24, 200, 2, 9, "sad", 7, False, 8, 0, None, "negative"),
+    (24, 130, 1, 5, "sad", 7, True, 24, 0, None, "beyond"),
+    (24, 130, 4, 7, "census", 5, False, 24, 0, None, "beyond"),
+    (70, 100, 2, 9, "census", 7, True, 64, 0, None, "nw0"),
+    (70, 100, 4, 5, "sad", 7, False, 64, 0, None, "nwK"),
+    (40, 300, 1, 7, "census", 9, False, 8, -4, 30, "nw1"),
+    (40, 300, 4, 9, "sad", 7, True, 24, -5, 33, "nwK"),
+    (64, 515, 2, 9, "census", 7, True, 64, 0, None, "step"),
+    (30, 260, 2, 5, "ssd", 7, True, 8, 0, None, "nw1"),
+    (24, 200, 2, 9, "census", 13, True, 8, 0, None, "nw1"),
+)
+
+
+def edge_plan(rng, h, w, tile_rows, kind, radius, K=4):
+    """A refine plan ``(bases, nw)`` the prior never gives (or, ``step``,
+    the plan of a prior with two disparity steps): bases below 0, at and
+    beyond w - R, nw = 0, 1 or above K."""
+    nr, nc = -(-h // tile_rows), -(-w // 128)
+    if kind == "step":
+        prior = np.full((h, w), 6.0, np.float32) + rng.normal(0, 1, (h, w)).astype(np.float32)
+        prior[:, w // 3:] += 10.0
+        prior[h // 2:, 2 * w // 3:] -= 7.0
+        from stepth_tpu_torch.match import fused_refine
+        bases, nw, _ = fused_refine.plan_level(torch.from_numpy(prior), tile_rows, 64, radius, 16)
+        return bases.numpy(), nw.numpy()
+    bases = rng.integers(0, 40, (nr, nc, K)).astype(np.int32)
+    nw = rng.integers(1, K + 1, (nr, nc)).astype(np.int32)
+    if kind == "negative":
+        bases[..., 0] = -3
+        bases[0, 0, 1] = -1
+    elif kind == "beyond":
+        bases[..., 0] = w - radius
+        bases[0, -1, 1] = w + 3
+        nw[:] = 2
+    elif kind == "nw0":
+        nw[:] = 0
+    elif kind == "nw1":
+        nw[:] = 1
+    else:
+        nw[:] = K + 2
+    return bases, nw
+
+
+def check_cost_front_edges(dev, err):
+    """K6 on ``K6_EDGES`` and K2 (with its right-view emit under ``lr``) on
+    ``K2_EDGES`` against their plain versions, on float images (the
+    ``cuda``-marked cases of ``tests/test_torch_fused_sgm.py`` and
+    ``test_torch_fused_refine.py``); any difference raises."""
+    from stepth_tpu_torch.config import MatchConfig
+    from stepth_tpu_torch.match import fused_refine, fused_sgm
+
+    rng = np.random.default_rng(SEED + 8)
+
+    def images(h, w, shift):
+        left = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        right = np.roll(left, -shift, axis=1) + rng.uniform(0, 4, (h, w)).astype(np.float32)
+        return torch.as_tensor(left, device=dev), torch.as_tensor(right, device=dev)
+
+    for h, w, D, win, cost, cw, dtype, g_row0, g_h in K6_EDGES:
+        lg, rg = images(h, w, 3)
+        c = MatchConfig(num_disparities=D, window=win, cost=cost, census_window=cw)
+        got = fused_sgm.aggregated_volume(lg, rg, c, dtype, g_row0, g_h)
+        want = fused_sgm.aggregated_volume_plain(lg, rg, c, dtype, g_row0, g_h)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 {h}x{w} D={D} window {win} {cost} census_window {cw} "
+                                 f"{dtype} g_row0 {g_row0} g_h {g_h}: not bit-equal")
+        err("K6", 0.0)
+    print(f"  K6: {len(K6_EDGES)} edge cases bit-equal (D 1-200, windows 1-25, SAD/SSD/census "
+          f"1-3 and 7 planes, f32/bf16, w < D, h < 8, row shards)")
+    for h, w, R, win, cost, cw, lr, tr, g_row0, g_h, kind in K2_EDGES:
+        lg, rg = images(h, w, 6)
+        bases, nw = (torch.as_tensor(a, device=dev) for a in edge_plan(rng, h, w, tr, kind, R))
+        c = MatchConfig(window=win, cost=cost, census_window=cw)
+        args = (lg, rg, bases, nw, c, R, tr, g_row0, g_h, lr)
+        got = fused_refine.refine_planned(*args)
+        want = fused_refine.refine_planned_plain(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in (zip(got, want) if lr else ((got, want),))):
+            raise AssertionError(f"K2 {h}x{w} R={R} window {win} {cost} census_window {cw} "
+                                 f"lr {lr} tile_rows {tr} g_row0 {g_row0} plan {kind}: "
+                                 f"not bit-equal")
+        err("K2", 0.0)
+        if lr:
+            err("K2 emit", 0.0)
+    print(f"  K2: {len(K2_EDGES)} edge cases bit-equal (R 1/2/4, windows 5/7/9, census 2/3/6 "
+          f"planes, SAD, SSD, lr on/off, bases < 0 and >= w - R, nw 0/1/> K, tile_rows 8/24/64, w 130 and < 128, "
+          f"row shards)")
 
 
 def edge_pair(rng, h, w, shift):
@@ -1135,9 +1260,10 @@ def main() -> int:
     print(f"  K10 ↓y {th3}x{W} D=64 shard: kernel {times['K10'][0]:.4f} ms, plain "
           f"{times['K10'][1]:.4f} ms (plain: median of {PLAIN_SGM_REPS})")
 
-    # 3i. the edges of K1, K7, K8, K10 and K11
-    print("== K1, K7, K8, K10 and K11 on ragged shapes, every D, offset views "
-          "(vs plain versions)")
+    # 3i. the edges of K1, K2, K6, K7, K8, K10 and K11
+    print("== K1, K2, K6, K7, K8, K10 and K11 on ragged shapes, every D, edge plans, "
+          "offset views (vs plain versions)")
+    check_cost_front_edges(dev, err)
     check_edges(dev, err)
 
     # 4a. the SAD slice end to end, through the user's entry point
@@ -1593,6 +1719,10 @@ def main() -> int:
     origin["K11"] = ("rig path", rig_launches)
     device["K1"] = kernel_only[("make_pair", "census", "K1")]
     device["K2"] = kernel_only[("make_pair", "census", "K2")]
+    box_k2 = (kernel_only[("box", "census", "K2")], work[("box", "census")])
+    print(f"  K2 alone on census planes, 3 levels: make_pair {device['K2']:.4f} ms (bound "
+          f"{bounds['K2'][0]:.4f}), box {box_k2[0]:.4f} ms (bound {box_k2[1][0]:.4f}, "
+          f"{box_k2[1][1]}), card: {smi[0]}")
     device["K11"] = k11_device[0]
     print(f"== kernels against their bounds (H100 SXM peaks: {PEAK_BYTES / 1e12} TB/s, "
           f"{PEAK_F32 / 1e12} TFLOP/s f32), card: {smi[0]}")
@@ -1611,6 +1741,8 @@ def main() -> int:
         "K1": {"flagship_ms": times["K1 sad, 1080x1920 D=128 + K4"][0],
                "flagship_device_ms": k1_flag_device, "flagship_bound_ms": k1_flag_bound[0],
                "flagship_bound_by": k1_flag_bound[1]},
+        "K2": {"box_device_ms": box_k2[0], "box_bound_ms": box_k2[1][0],
+               "box_bound_by": box_k2[1][1]},
         "K7": {"ms_by_direction": {a: t[0] for a, t in k7_dirs.items()},
                "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()}},
         "K11": {"library_device_ms": k11_device[1]},

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's matcher (K1), scan (K7, K8, K10) and remap (K11) kernels
+"""Time the port's matchers (K1, K2), volume (K6), scans (K7, K8, K10) and remap (K11) kernels
 against an earlier version of them, in turns, on one NVIDIA GPU.
 
     python3 compare_kernels.py --old-csrc DIR [--out FILE]
@@ -12,13 +12,19 @@ own beside the current one. Both versions run on the same inputs:
 - K1 (SAD, window 9) at the ``flagship()`` shape, 1080×1920 with D=128, on
   ``chip_smoke.make_pair``; at the 135×240 coarse level with D=16, SAD and
   census (window 7, two planes given); on the first of the 4 row shards of
-  the sharded ``flagship()`` (286 rows, ``g_row0`` = −8). The old version
-  is called through the C interface that wrote the right view as f32 (the
-  sources before the packed one), the new through the current one, whose
-  packed u64 buffer a call fills first (timed with the fill); the outputs
-  are compared decoded;
-- K6 at 1080×1920, D=64, window 5 (it shares ``csrc/common.cuh`` with K1
-  and K8);
+  the sharded ``flagship()`` (286 rows, ``g_row0`` = −8); both versions
+  through the C interface of the packed u64 right view (an older ``DIR``
+  needs the script of its own time), whose buffer a call fills first
+  (timed with the fill);
+- K6 at 1080×1920, D=64, window 5, f32 and bf16 (path 3's volume), at
+  the 135×240 coarse level with D=16, window 9, census (two planes given),
+  and on the first of 3 row shards of 360 rows with an 8-row halo
+  (``g_row0`` = −8);
+- K2 on census planes given, with the plans and priors of the
+  hierarchical pipeline (``tile_rows`` 64, R=2, up to 16 windows): each
+  of the three levels of the ``box`` scene (``lr`` at level 0, timed with
+  its buffer fill), the three levels of ``make_pair`` together, and the
+  three ``box`` levels with SAD;
 - K8 at 1080×1920, D=64, f32 and bf16, and at 135×240, D=16, on the
   volume and 3-direction sum that path 3 (``sgm-pallas``, 4 directions,
   window 5) and its coarse level give it, each with its buffer fill;
@@ -97,6 +103,53 @@ def turns(fns: dict) -> dict:
     return {n: float(np.median(t)) for n, t in times.items()}
 
 
+def k2_levels(lg, rg, cfg, lr0):
+    """The three refine levels of the hierarchical pipeline (``levels=4``,
+    ``coarsest_disparities=16``, ``tile_rows`` 64) on gray images ``lg``,
+    ``rg`` of the card, priors from the plain path: for each, ``(level, K2
+    launch arguments, outputs, lr, tensors the arguments point into, tiles
+    with nw > 1)``; ``lr`` at level 0 when ``lr0``. K2 reads the census
+    planes (given) or the gray images."""
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig
+    from stepth_tpu_torch.match import dense, fused_dense, fused_refine, pyramid
+
+    pyr = PyramidConfig(levels=4, coarsest_disparities=16)
+    lefts, rights = [lg], [rg]
+    for _ in range(3):
+        lefts.append(pyramid.downsample2(lefts[-1]))
+        rights.append(pyramid.downsample2(rights[-1]))
+    coarse = MatchConfig(num_disparities=16, window=cfg.window, cost=cfg.cost,
+                         census_window=cfg.census_window, lr_threshold=None)
+    disp = fused_dense.raw_match_plain(lefts[-1], rights[-1], coarse, 16)[0]
+    max_base, out = 16, []
+    for lvl in (2, 1, 0):
+        h, w = lefts[lvl].shape
+        prior = pyramid.upsample2_disparity(disp, h, w)
+        max_base *= 2
+        lr = lr0 and lvl == 0
+        bases, nw, tr = fused_refine.plan_level(prior, 64, max_base, pyr.refine_radius,
+                                                pyr.refine_windows)
+        keep = [lefts[lvl], rights[lvl], bases, nw]
+        images = (lefts[lvl].data_ptr(), rights[lvl].data_ptr(), None, None, 0)
+        if cfg.cost == "census":
+            lcc, rcc = dense.census_pair(lefts[lvl], rights[lvl], cfg.census_window)
+            images = (None, None, lcc.data_ptr(), rcc.data_ptr(), lcc.shape[0])
+            keep += [lcc, rcc]
+        disp_k = torch.empty_like(lefts[lvl])
+        packed = torch.empty((h, w), dtype=torch.int64, device=lg.device)
+        args = (*images, bases.data_ptr(), nw.data_ptr(), disp_k.data_ptr(),
+                packed.data_ptr() if lr else None, h, w, nw.shape[1], bases.shape[-1], tr,
+                pyr.refine_radius, cfg.window,
+                fused_refine._region_margin(cfg, pyr.refine_radius),
+                int(cfg.cost == "ssd"), 0, h, int(lr))
+        out.append((lvl, args, [disp_k, packed] if lr else [disp_k], lr, keep,
+                    int((nw > 1).sum())))
+        disp = fused_refine.refine_planned_plain(lefts[lvl], rights[lvl], bases, nw, cfg,
+                                                 pyr.refine_radius, tr, lr=lr)
+        disp = disp[0] if lr else disp
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-csrc", required=True, type=pathlib.Path)
@@ -108,10 +161,11 @@ def main() -> int:
         return 2
     import chip_smoke
     from stepth_tpu_torch import kernels
-    from stepth_tpu_torch.config import MatchConfig, SGMConfig
-    from stepth_tpu_torch.match import dense, fused_dense, fused_sgm, pyramid
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
+    from stepth_tpu_torch.match import dense, fused_dense, fused_refine, fused_sgm, pyramid
     from stepth_tpu_torch.match.sgm import penalties
     from stepth_tpu_torch.ops import fused_remap, rectify
+    from stepth_tpu_torch.utils import scenes
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -152,31 +206,30 @@ def main() -> int:
             raise AssertionError(f"{name}: old and new outputs differ")
 
     def k1_versions(name, lg, rg, D, planes=None, g_row0=0, g_h=None):
-        """K1 without uniqueness (its flagship()/coarse use), old against new,
-        outputs held equal (disp, right view, cbest, valid), then timed."""
+        """K1 without uniqueness (its flagship()/coarse use), old against new
+        through the same C interface (each fills its packed right-view
+        buffer first), all four outputs held equal, then timed."""
         h, w = lg.shape
-        old_out = [torch.full_like(lg, float("nan")) for _ in range(4)]
-        new_out = [torch.full_like(lg, float("nan")) for _ in range(3)]
-        right = torch.empty((h, w), dtype=torch.int64, device=dev)
         images = ((lg.data_ptr(), rg.data_ptr(), None, None, 0) if planes is None else
                   (None, None, planes[0].data_ptr(), planes[1].data_ptr(), planes[0].shape[0]))
         tail = (h, w, D, 9, 0, 0, 1.0, g_row0, h if g_h is None else g_h)
-        old_fn, new_fn = bind(old, fused_dense.K1), bind(kernels.load(), fused_dense.K1)
+        fns, outs = {}, {}
+        for v, lib in (("old", old), ("new", kernels.load())):
+            fn = bind(lib, fused_dense.K1)
+            o = [torch.full_like(lg, float("nan")) for _ in range(3)]
+            right = torch.empty((h, w), dtype=torch.int64, device=dev)
 
-        def run_old():
-            old_fn(*images, *(o.data_ptr() for o in old_out), *tail)
+            def run(fn=fn, o=o, right=right):
+                right.fill_(fused_dense._RIGHT_START)
+                fn(*images, o[0].data_ptr(), right.data_ptr(), o[1].data_ptr(),
+                   o[2].data_ptr(), *tail)
 
-        def run_new():
-            right.fill_(fused_dense._RIGHT_START)
-            new_fn(*images, new_out[0].data_ptr(), right.data_ptr(), new_out[1].data_ptr(),
-                   new_out[2].data_ptr(), *tail)
-
-        run_old(), run_new()
+            fns[v], outs[v] = run, o + [right]
+        fns["old"](), fns["new"]()
         torch.cuda.synchronize()
-        decoded = [new_out[0], (right & 0xFFFFFFFF).to(torch.float32), *new_out[1:]]
-        if not all(torch.equal(a, b) for a, b in zip(old_out, decoded)):
+        if not all(torch.equal(a, b) for a, b in zip(outs["old"], outs["new"])):
             raise AssertionError(f"K1 {name}: old and new outputs differ")
-        result[f"K1 {name}, ms"] = turns({"old": run_old, "new": run_new})
+        result[f"K1 {name}, ms"] = turns(fns)
         print(f"K1 {name}: {result[f'K1 {name}, ms']}")
 
     H, W = 1080, 1920
@@ -194,15 +247,63 @@ def main() -> int:
     k1_versions("census 135x240 D=16 window 9, 2 planes given (coarse)", lc_, rc_, 16,
                 dense.census_pair(lc_, rc_, 7))
 
-    # K6 (it shares common.cuh with K1 and K8): path 3's volume, in turns
+    # K6: path 3's volume (f32, bf16), the hierarchical-sgm coarse level
+    # (census, planes given) and a halo-extended row shard, in turns
+    def k6_versions(name, lg_, rg_, cfg, dtype, g_row0=0, g_h=None):
+        h, w = lg_.shape
+        vol = torch.empty((cfg.num_disparities, h, w), dtype=dtype, device=dev)
+        images = (lg_.data_ptr(), rg_.data_ptr(), None, None, 0)
+        if cfg.cost == "census":
+            lcc, rcc = dense.census_pair(lg_, rg_, cfg.census_window)
+            images = (None, None, lcc.data_ptr(), rcc.data_ptr(), lcc.shape[0])
+        a6 = (*images, vol.data_ptr(), int(dtype == torch.bfloat16), h, w,
+              cfg.num_disparities, cfg.window, int(cfg.cost == "ssd"), g_row0,
+              h if g_h is None else g_h)
+        same(fused_sgm.K6, [vol], *a6)
+        result[f"K6 {name}, ms"] = turns(versions(fused_sgm.K6, *a6))
+        print(f"K6 {name}: {result[f'K6 {name}, ms']}")
+
     cfg6 = MatchConfig(num_disparities=64, window=5)
-    vol6 = torch.empty((64, H, W), device=dev)
-    a6 = (lg.data_ptr(), rg.data_ptr(), None, None, 0, vol6.data_ptr(), 0, H, W, 64,
-          cfg6.window, 0, 0, H)
-    same(fused_sgm.K6, [vol6], *a6)
-    result["K6 1080x1920 D=64 window 5 f32, ms"] = turns(versions(fused_sgm.K6, *a6))
-    print(f"K6: {result['K6 1080x1920 D=64 window 5 f32, ms']}")
-    del vol6
+    k6_versions("1080x1920 D=64 window 5 f32", lg, rg, cfg6, torch.float32)
+    k6_versions("1080x1920 D=64 window 5 bf16", lg, rg, cfg6, torch.bfloat16)
+    k6_versions("census 135x240 D=16 window 9, 2 planes given (coarse)", lc_, rc_,
+                MatchConfig(num_disparities=16, window=9, cost="census"), torch.float32)
+    shard6 = [torch.cat([t[:1].expand(halo, W), t[:360 + halo]]).contiguous() for t in (lg, rg)]
+    k6_versions("376x1920 D=64 window 5 f32, shard 0 of 3 (g_row0 -8)", *shard6, cfg6,
+                torch.float32, -halo, H)
+
+    # K2 on census planes given (or the gray images for SAD) with the plans
+    # of the hierarchical pipeline: priors from the plain path
+    def k2_fns(levels):
+        fns = {}
+        for v, lib in (("old", old), ("new", kernels.load())):
+            fn = bind(lib, fused_refine.K2)
+
+            def run(fn=fn):
+                for _, args, outs, lr, _, _ in levels:
+                    if lr:
+                        outs[1].fill_(-1)
+                    fn(*args)
+
+            fns[v] = run
+        return fns
+
+    census7 = MatchConfig(num_disparities=128, window=9, cost="census")
+    box = scenes.make_scene("box", H, W, 128, seed=1)
+    bl, br = (dense.grayscale(a, dev) for a in (box.left, box.right))
+    for scene, (l_, r_), cfg, lr0, split in (
+            ("box census", (bl, br), census7, True, True),
+            ("make_pair census", (lg, rg), census7, True, False),
+            ("box sad", (bl, br), MatchConfig(num_disparities=128, window=9), False, False)):
+        levels = k2_levels(l_, r_, cfg, lr0)
+        groups = [[lv] for lv in levels] if split else [levels]
+        for group in groups:
+            tag = (f"{scene}, level {group[0][0]} (tiles nw>1: {group[0][5]}"
+                   f"{', lr' if group[0][3] else ''})" if split else f"{scene}, 3 levels")
+            fns = k2_fns(group)
+            same_runs(f"K2 {tag}", fns, lambda g=group: [o for lv in g for o in lv[2]])
+            result[f"K2 {tag}, ms"] = turns(fns)
+            print(f"K2 {tag}: {result[f'K2 {tag}, ms']}")
 
     # K8 on what path 3 gives it: the window-5 volume and its 3-direction sum
     def k8_versions(name, vol, acc, cfg):

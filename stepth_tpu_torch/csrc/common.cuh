@@ -1,17 +1,22 @@
 // Shared device helpers for the port's kernels.
 //
-// box_ordered() reproduces the reference's box-sum association exactly, so a
-// kernel, its plain PyTorch version and the Pallas kernel add the same f32
-// values in the same order:
+// The box sums reproduce the reference's association exactly, so a kernel,
+// its plain PyTorch version and the Pallas kernel add the same f32 values in
+// the same order:
 //   window 9:  y(k) = (c(k) + c(k-1)) + c(k+1);  z(k) = (y(k) + y(k-3)) + y(k+3)
 //              (the two-stage 3x3 decomposition of pallas_dense.box_sum_slab)
 //   otherwise: z(k) = ((c(k-r) + c(k-r+1)) + ...) + c(k+r)
 // Only adds are involved, so no FMA contraction can change the result.
 //
-// cost_front_vertical() is K6's cost front (K1 forms the same costs and sums
-// from shared-memory tiles of its own, in the same association), and
-// WtaState the running first-minimum WTA of K1, K8 and K9.
+// K1, K2 and K6 share the cost front: the images (or census planes) staged
+// in shared-memory tiles by load_tile(), the costs and their vertical box
+// sums formed in registers by vertical_walk(), the horizontal sums by
+// box_run(); for a box radius known only at run time, vertical_walk_image()
+// and box_rt() read the images from global memory instead. WtaState is the
+// running first-minimum WTA of K1, K8 and K9.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,82 +25,208 @@ namespace stepth {
 
 constexpr float kBig = 1e30f;
 
-// Sum of the `win` values centred on p[0], spaced `stride` apart.
-__device__ __forceinline__ float box_ordered(const float* p, int stride, int win) {
-  if (win == 9) {
-    const float* a = p - 3 * stride;
-    const float* b = p + 3 * stride;
-    float y0 = (p[0] + p[-stride]) + p[stride];
-    float ym = (a[0] + a[-stride]) + a[stride];
-    float yp = (b[0] + b[-stride]) + b[stride];
-    return (y0 + ym) + yp;
-  }
-  const int r = win / 2;
-  float z = p[-r * stride];
-  for (int j = -r + 1; j <= r; ++j) z = z + p[j * stride];
+enum Cost { kSad, kSsd, kCensus };
+
+// The physical column of logical column `col` of a row of vertical sums:
+// every 32 floats are followed by 4 spare ones, so that the 8 threads of a
+// quarter-warp reading float4s 32 bytes apart hit distinct banks. Logical
+// float4 f lies at float 4 * (f + (f >> 3)).
+__device__ __forceinline__ int swz(int col) { return col + ((col >> 5) << 2); }
+__host__ __device__ constexpr int swz_width(int cols) {
+  return (cols + 3) / 4 * 4 + ((cols + 3) / 4 * 4 + 31) / 32 * 4;
+}
+
+// Sum of the 2R + 1 values v[i .. i + 2R], left to right (windows but 9).
+template <int R, int N>
+__device__ __forceinline__ float box_chain(const float (&v)[N], int i) {
+  float z = v[i];
+#pragma unroll
+  for (int j = 1; j <= 2 * R; ++j) z = z + v[i + j];
   return z;
 }
 
-// Census cost: Hamming distance between the int32 descriptor planes
-// [P, H, W] of the left image at (row, xl) and the right image at (row, xr);
-// `plane` is H * W and `row` the row's offset y * W.
-__device__ __forceinline__ int hamming(const int* __restrict__ lc,
-                                       const int* __restrict__ rc, int nplanes,
-                                       size_t plane, size_t row, int xl, int xr) {
-  int ham = 0;
-  for (int p = 0; p < nplanes; ++p) {
-    ham += __popc((unsigned)(lc[p * plane + row + xl] ^ rc[p * plane + row + xr]));
+// The box sums of M consecutive centres v[OFF + R + i], window 9 forming
+// each 3-sum once: y(k) = (c(k) + c(k-1)) + c(k+1), z(k) = (y(k) + y(k-3)) +
+// y(k+3).
+template <int R, bool NINE, int OFF, int N, int M>
+__device__ __forceinline__ void box_run(const float (&v)[N], float (&z)[M]) {
+  if (NINE) {
+    float y3[M + 6];  // y3[m]: the 3-sum centred on v[OFF + m + 1]
+#pragma unroll
+    for (int m = 0; m < M + 6; ++m) y3[m] = (v[OFF + m + 1] + v[OFF + m]) + v[OFF + m + 2];
+#pragma unroll
+    for (int i = 0; i < M; ++i) z[i] = (y3[i + 3] + y3[i]) + y3[i + 6];
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i) z[i] = box_chain<R>(v, OFF + i);
   }
-  return ham;
 }
 
-// In-image test for a cost row: local row y of an input that starts at
-// global row g_row0 of an image g_h rows tall (a row shard carries halo
-// rows that lie outside the global image).
-__device__ __forceinline__ bool row_in_image(int y, int h, int g_row0, int g_h) {
-  const int g = g_row0 + y;
-  return y >= 0 && y < h && g >= 0 && g < g_h;
+// The word at (plane p, row y0 + k, column x0 + col) of the census planes
+// `c` [P, h, w] (nplanes > 0) or of the f32 image `g`, clamped to the image
+// (the costs mask what lies outside).
+__device__ __forceinline__ const uint32_t* tile_src(const float* g, const int* c, int nplanes,
+                                                    int h, int w, int p, int y, int x) {
+  y = min(max(y, 0), h - 1);
+  x = min(max(x, 0), w - 1);
+  const size_t o = (size_t)y * w + x;
+  return nplanes ? reinterpret_cast<const uint32_t*>(c + p * (size_t)h * w + o)
+                 : reinterpret_cast<const uint32_t*>(g + o);
 }
 
-// The cost front for disparity d of an output tile of BH rows starting at y0
-// and QC - 2r cost columns starting at x0 (r = win / 2), computed by the NT
-// threads of a block:
-//   (1) C [BH + 2r][QC]: the masked cost of rows [y0 - r, y0 + BH + r) and
-//       columns [x0 - r, x0 - r + QC) — SAD, SSD or, with nplanes > 0, the
-//       census Hamming distance against the right sample at x - d (column
-//       0 where x - d < 0), 0 outside the image (zero-padded box sums);
-//   (2) V [BH][QC]: its vertical box sums for the BH output rows.
-// The horizontal sum of output (k, q) is then box_ordered(&V[k*QC + q + r],
-// 1, win). Ends with a barrier; the caller's reads of V for this d finish
-// before its next call's first barrier, so C and V are safely reused.
-template <int BH, int NT>
-__device__ __forceinline__ void cost_front_vertical(
-    float* C, float* V, const float* __restrict__ lg, const float* __restrict__ rg,
-    const int* __restrict__ lc, const int* __restrict__ rc, int nplanes, int h, int w,
-    int x0, int y0, int QC, int d, int win, int squared, int g_row0, int g_h) {
-  const int r = win / 2;
-  const int SR = BH + 2 * r;
-  for (int e = threadIdx.x; e < SR * QC; e += NT) {
-    const int k = e / QC, q = e - (e / QC) * QC;
-    const int y = y0 - r + k, x = x0 - r + q;
-    float c = 0.f;
-    if (row_in_image(y, h, g_row0, g_h) && x >= 0 && x < w) {
-      const int xs = x - d < 0 ? 0 : x - d;
-      if (nplanes) {
-        c = (float)hamming(lc, rc, nplanes, (size_t)h * w, (size_t)y * w, x, xs);
-      } else {
-        const float diff = lg[(size_t)y * w + x] - rg[(size_t)y * w + xs];
-        c = squared ? diff * diff : fabsf(diff);
+// Loads rows [y0, y0 + nr) x columns [x0, x0 + ncols) of every plane into
+// dst [P][nr][ncols], by the NT threads of the block. Called with constant
+// sizes it divides by constants only.
+template <int NT>
+__device__ __forceinline__ void load_tile(uint32_t* dst, const float* __restrict__ g,
+                                          const int* __restrict__ c, int nplanes, int h,
+                                          int w, int y0, int x0, int nr, int ncols) {
+  const int planes = nplanes ? nplanes : 1;
+  for (int e = threadIdx.x; e < planes * nr * ncols; e += NT) {
+    const int p = e / (nr * ncols), k = e / ncols % nr, col = e % ncols;
+    dst[e] = *tile_src(g, c, nplanes, h, w, p, y0 + k, x0 + col);
+  }
+}
+
+// load_tile by asynchronous 4-byte copies (cp.async): every copy of the
+// thread is in flight at once; cp_async_wait_all() then a barrier make them
+// visible to the block.
+__device__ __forceinline__ void cp_async_word(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+template <int NT>
+__device__ __forceinline__ void load_tile_async(uint32_t* dst, const float* __restrict__ g,
+                                                const int* __restrict__ c, int nplanes, int h,
+                                                int w, int y0, int x0, int nr, int ncols) {
+  const int planes = nplanes ? nplanes : 1;
+  for (int e = threadIdx.x; e < planes * nr * ncols; e += NT) {
+    const int p = e / (nr * ncols), k = e / ncols % nr, col = e % ncols;
+    cp_async_word(dst + e, tile_src(g, c, nplanes, h, w, p, y0 + k, x0 + col));
+  }
+}
+
+// The vertical pass of the shared-memory cost front (K1, K2, K6): one
+// column and DW consecutive disparities (or candidates). F gives the
+// geometry: BH output rows, box radius R, NR = BH + 2R cost rows, the row
+// strides TW of the left tile, SW of the right slab and RS of the sums. For
+// each disparity, the costs of the NR rows (0 where `mask` has no bit: rows
+// outside the image or the global [0, g_h), and every row of a column
+// outside the image; with BAD, 1e6 on the rows of `mask` for a candidate
+// whose bit is set in `bad`: the right sample lies outside the image) and
+// their vertical box sums for the BH output rows, stored a sums row apart
+// from `out`, the next disparity's BH rows further. `lt` points at the
+// column of the left tile, `rt` at the first disparity's column of the
+// right slab (x - d; the next disparity's is one to the left). Only the
+// first nq disparities' sums are stored.
+template <class F, int DW, bool NINE, int COST, bool BAD>
+__device__ __forceinline__ void vertical_walk(const uint32_t* lt, const uint32_t* rt,
+                                              float* out, uint32_t mask, int planes,
+                                              uint32_t bad, int nq = DW) {
+  // every row is loaded (the tiles are clamped, so in bounds) and masked
+  // after: no branch keeps a load from being issued early
+  float c[DW][F::NR];
+  if (COST == kCensus) {
+    int ham[DW][F::NR] = {};
+    for (int p = 0; p < planes; ++p) {
+#pragma unroll
+      for (int k = 0; k < F::NR; ++k) {
+        const uint32_t l = lt[(p * F::NR + k) * F::TW];
+#pragma unroll
+        for (int q = 0; q < DW; ++q) ham[q][k] += __popc(l ^ rt[(p * F::NR + k) * F::SW - q]);
       }
     }
-    C[e] = c;
+#pragma unroll
+    for (int k = 0; k < F::NR; ++k) {
+#pragma unroll
+      for (int q = 0; q < DW; ++q) c[q][k] = (float)ham[q][k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < F::NR; ++k) {
+      const float l = __uint_as_float(lt[k * F::TW]);
+#pragma unroll
+      for (int q = 0; q < DW; ++q) {
+        const float diff = l - __uint_as_float(rt[k * F::SW - q]);
+        c[q][k] = COST == kSsd ? __fmul_rn(diff, diff) : fabsf(diff);  // no FMA
+      }
+    }
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < BH * QC; e += NT) {
-    const int k = e / QC, q = e - (e / QC) * QC;
-    V[e] = box_ordered(&C[(k + r) * QC + q], QC, win);
+#pragma unroll
+  for (int k = 0; k < F::NR; ++k) {
+#pragma unroll
+    for (int q = 0; q < DW; ++q) {
+      c[q][k] = !(mask >> k & 1u) ? 0.f : BAD && (bad >> q & 1u) ? 1e6f : c[q][k];
+    }
   }
-  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < DW; ++q) {
+    if (q >= nq) break;
+    float z[F::BH];
+    box_run<F::R, NINE, 0>(c[q], z);
+#pragma unroll
+    for (int j = 0; j < F::BH; ++j) out[(q * F::BH + j) * F::RS] = z[j];
+  }
+}
+
+// The box sum of radius r centred on get(0), r known only at run time, in
+// the reference's association (window 9 in two stages).
+template <class G>
+__device__ __forceinline__ float box_rt(const G& get, int r) {
+  if (r == 4) {
+    const float y0 = (get(0) + get(-1)) + get(1);
+    const float ym = (get(-3) + get(-4)) + get(-2);
+    const float yp = (get(3) + get(2)) + get(4);
+    return (y0 + ym) + yp;
+  }
+  float z = get(-r);
+  for (int t = -r + 1; t <= r; ++t) z = z + get(t);
+  return z;
+}
+
+// The cost of pixel (y, x) against right column xr, read from the images
+// (or census planes [P, h, w]) in global memory; y, x and xr in the image.
+template <int COST>
+__device__ __forceinline__ float image_cost(const float* __restrict__ lg,
+                                            const float* __restrict__ rg,
+                                            const int* __restrict__ lc,
+                                            const int* __restrict__ rc, int planes, int h,
+                                            int w, int y, int x, int xr) {
+  const size_t o = (size_t)y * w;
+  if (COST == kCensus) {
+    int ham = 0;
+    for (int p = 0; p < planes; ++p) {
+      const size_t po = (size_t)p * h * w + o;
+      ham += __popc((unsigned)(lc[po + x] ^ rc[po + xr]));
+    }
+    return (float)ham;
+  }
+  const float diff = lg[o + x] - rg[o + xr];
+  return COST == kSsd ? __fmul_rn(diff, diff) : fabsf(diff);  // no FMA
+}
+
+// The vertical pass for a box radius r known only at run time (windows
+// above 17, or tiles too large for shared memory), one disparity: the bh
+// vertical sums of column x for output rows y0 .. y0 + bh - 1, each from its
+// 2r + 1 costs read from the images (rows outside [ylo, yhi) cost 0; with
+// `bad`, 1e6), stored `rs` apart from `out`. xr is the right column of x
+// (already clamped where the contract clamps it).
+template <int COST>
+__device__ __forceinline__ void vertical_walk_image(
+    const float* __restrict__ lg, const float* __restrict__ rg, const int* __restrict__ lc,
+    const int* __restrict__ rc, int planes, int h, int w, int y0, int x, int xr, bool bad,
+    int ylo, int yhi, float* out, int bh, int rs, int r) {
+  for (int j = 0; j < bh; ++j) {
+    const auto cost = [&](int i) {
+      const int y = y0 + j + i;
+      if (y < ylo || y >= yhi) return 0.f;
+      return bad ? 1e6f : image_cost<COST>(lg, rg, lc, rc, planes, h, w, y, x, xr);
+    };
+    out[j * rs] = box_rt(cost, r);
+  }
 }
 
 // Parabolic subpixel disparity of a winner `bestd` with neighbour costs

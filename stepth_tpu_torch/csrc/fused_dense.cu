@@ -106,13 +106,13 @@ __device__ __forceinline__ int ring_at(int slot) { return slot + (slot >> 3); }
 // [BH][RWS] u64; the left image (or its census planes) [P][NR][TW] and the
 // right-image slab of SD disparities [P][NR][SW], both as loaded (clamped
 // to the image; the cost masks them).
-template <int R>
+template <int R_>
 struct DenseLayout {
+  static constexpr int R = R_, BH = Tile::BH;
   static constexpr int NR = Tile::BH + 2 * R;               // cost rows
   static constexpr int TW = Tile::BX + 2 * R;               // columns of costs and sums
   static constexpr int SW = TW + Tile::SD - 1;              // right-slab columns
-  static constexpr int VWP = (TW + 3) / 4 * 4;
-  static constexpr int RS = VWP + (VWP + 31) / 32 * 4;      // physical row stride of V
+  static constexpr int RS = swz_width(TW);                  // physical row stride of V
   static constexpr int NV = (Tile::Q + 2 * R + 3) / 4 * 4;  // sums a thread reads
   static constexpr int V_WORDS = Tile::DC * Tile::BH * RS;
   static constexpr int RING_WORDS = 2 * Tile::BH * Tile::RWS;
@@ -121,33 +121,6 @@ struct DenseLayout {
     return 4 * ((size_t)V_WORDS + RING_WORDS + (size_t)planes * NR * (TW + SW));
   }
 };
-
-__device__ __forceinline__ int swz(int col) { return col + ((col >> 5) << 2); }
-
-// Sum of the 2R + 1 values v[i .. i + 2R], left to right (windows but 9).
-template <int R, int N>
-__device__ __forceinline__ float box_chain(const float (&v)[N], int i) {
-  float z = v[i];
-#pragma unroll
-  for (int j = 1; j <= 2 * R; ++j) z = z + v[i + j];
-  return z;
-}
-
-// The box sums of M consecutive centres, window 9 forming each 3-sum once:
-// y(k) = (c(k) + c(k-1)) + c(k+1), z(k) = (y(k) + y(k-3)) + y(k+3).
-template <int R, bool NINE, int N, int M>
-__device__ __forceinline__ void box_run(const float (&v)[N], float (&z)[M]) {
-  if (NINE) {
-    float y3[M + 6];  // y3[m]: the 3-sum centred on v[m + 1]
-#pragma unroll
-    for (int m = 0; m < M + 6; ++m) y3[m] = (v[m + 1] + v[m]) + v[m + 2];
-#pragma unroll
-    for (int i = 0; i < M; ++i) z[i] = (y3[i + 3] + y3[i]) + y3[i + 6];
-  } else {
-#pragma unroll
-    for (int i = 0; i < M; ++i) z[i] = box_chain<R>(v, i);
-  }
-}
 
 struct DenseArgs {
   const float* lg;
@@ -163,55 +136,6 @@ struct DenseArgs {
   float uniq1p;
   int g_row0, g_h;
 };
-
-enum Cost { kSad, kSsd, kCensus };
-
-// Vertical pass of one walk over the shared tiles: a column and DW
-// consecutive disparities of the chunk. For each, the costs of the NR cost
-// rows (zero where `mask` has no bit: rows outside the image or the global
-// [0, g_h), and every row of a column outside the image) and their vertical
-// box sums for the BH output rows, stored a V row apart from `out` (the
-// next disparity's a V plane further). `lt` points at the walk's column of
-// the left tile, `rt` at its first disparity's column of the right slab
-// (x - d; the next disparity's is one to the left).
-template <int R, bool NINE, int COST>
-__device__ __forceinline__ void vertical_walk(const uint32_t* lt, const uint32_t* rt,
-                                              float* out, uint32_t mask, int planes) {
-  using L = DenseLayout<R>;
-  constexpr int DW = Tile::DW;
-  float c[DW][L::NR];
-#pragma unroll
-  for (int k = 0; k < L::NR; ++k) {
-#pragma unroll
-    for (int q = 0; q < DW; ++q) c[q][k] = 0.f;
-    if (mask >> k & 1u) {
-      if (COST == kCensus) {
-        int ham[DW] = {};
-        for (int p = 0; p < planes; ++p) {
-          const uint32_t l = lt[(p * L::NR + k) * L::TW];
-#pragma unroll
-          for (int q = 0; q < DW; ++q) ham[q] += __popc(l ^ rt[(p * L::NR + k) * L::SW - q]);
-        }
-#pragma unroll
-        for (int q = 0; q < DW; ++q) c[q][k] = (float)ham[q];
-      } else {
-        const float l = __uint_as_float(lt[k * L::TW]);
-#pragma unroll
-        for (int q = 0; q < DW; ++q) {
-          const float diff = l - __uint_as_float(rt[k * L::SW - q]);
-          c[q][k] = COST == kSsd ? __fmul_rn(diff, diff) : fabsf(diff);  // no FMA
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < DW; ++q) {
-    float z[Tile::BH];
-    box_run<R, NINE>(c[q], z);
-#pragma unroll
-    for (int j = 0; j < Tile::BH; ++j) out[(q * Tile::BH + j) * L::RS] = z[j];
-  }
-}
 
 // Horizontal pass and WTA of a chunk (disparities d0 + [0, dc)) for a
 // thread's Q pixels of output row j, columns xg + [0, Q) (g: its place in
@@ -249,7 +173,7 @@ __device__ __forceinline__ void horizontal_wta(const float* vs, unsigned long lo
         v[4 * m] = q.x; v[4 * m + 1] = q.y; v[4 * m + 2] = q.z; v[4 * m + 3] = q.w;
       }
       float z[Tile::Q];
-      box_run<R, NINE>(v, z);
+      box_run<R, NINE, 0>(v, z);
 #pragma unroll
       for (int i = 0; i < Tile::Q; ++i) {
         st[i].update(z[i], d, UNIQ);
@@ -300,7 +224,6 @@ __global__ void __launch_bounds__(Tile::NT, 4) fused_dense_kernel(DenseArgs a) {
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * Tile::BX;
   const int y0 = blockIdx.y * Tile::BH;
-  const size_t plane = (size_t)a.h * a.w;
   // the cost rows that cost anything: inside [0, h) and the global [0, g_h)
   const int ylo = max(0, -a.g_row0), yhi = min(a.h, a.g_h - a.g_row0);
   uint32_t rowmask = 0;
@@ -310,13 +233,7 @@ __global__ void __launch_bounds__(Tile::NT, 4) fused_dense_kernel(DenseArgs a) {
   }
   const unsigned long long init = (unsigned long long)__float_as_uint(kBig) << 32;
   for (int e = tid; e < Tile::BH * Tile::RWS; e += Tile::NT) ring[e] = init;
-  // the left tile, clamped to the image
-  for (int e = tid; e < planes * L::NR * L::TW; e += Tile::NT) {
-    const int p = e / (L::NR * L::TW), k = e / L::TW % L::NR, col = e % L::TW;
-    const int y = min(max(y0 - R + k, 0), a.h - 1), x = min(max(x0 - R + col, 0), a.w - 1);
-    const size_t o = (size_t)y * a.w + x;
-    lt[e] = a.nplanes ? (uint32_t)a.lc[p * plane + o] : __float_as_uint(a.lg[o]);
-  }
+  load_tile<Tile::NT>(lt, a.lg, a.lc, a.nplanes, a.h, a.w, y0 - R, x0 - R, L::NR, L::TW);
 
   const int j = tid / Tile::TPRP, g = tid % Tile::TPRP;  // horizontal pass: row, lane
   const int xg = x0 + g * Tile::Q;
@@ -332,13 +249,8 @@ __global__ void __launch_bounds__(Tile::NT, 4) fused_dense_kernel(DenseArgs a) {
     if (d0 == ds) {
       // the right slab of disparities [ds, ds + SD): column t holds right
       // column x0 - R - ds - (SD - 1) + t (column 0 where it is < 0)
-      const int xr0 = x0 - R - ds - (Tile::SD - 1);
-      for (int e = tid; e < planes * L::NR * L::SW; e += Tile::NT) {
-        const int p = e / (L::NR * L::SW), k = e / L::SW % L::NR, t = e % L::SW;
-        const int y = min(max(y0 - R + k, 0), a.h - 1), x = min(max(xr0 + t, 0), a.w - 1);
-        const size_t o = (size_t)y * a.w + x;
-        rt[e] = a.nplanes ? (uint32_t)a.rc[p * plane + o] : __float_as_uint(a.rg[o]);
-      }
+      load_tile<Tile::NT>(rt, a.rg, a.rc, a.nplanes, a.h, a.w, y0 - R, x0 - R - ds - (Tile::SD - 1),
+                L::NR, L::SW);
     }
     __syncthreads();  // tiles in place; the last chunk's walks and flush done
     // (a walk of the last chunk may run past dc: its sums are not read, and
@@ -350,11 +262,11 @@ __global__ void __launch_bounds__(Tile::NT, 4) fused_dense_kernel(DenseArgs a) {
       float* out = vs + dd * Tile::BH * L::RS + swz(col);
       const uint32_t* rcol = rt + col + Tile::SD - 1 - (d0 + dd - ds);
       if (a.nplanes) {
-        vertical_walk<R, NINE, kCensus>(lt + col, rcol, out, mask, planes);
+        vertical_walk<L, Tile::DW, NINE, kCensus, false>(lt + col, rcol, out, mask, planes, 0);
       } else if (a.squared) {
-        vertical_walk<R, NINE, kSsd>(lt + col, rcol, out, mask, 1);
+        vertical_walk<L, Tile::DW, NINE, kSsd, false>(lt + col, rcol, out, mask, 1, 0);
       } else {
-        vertical_walk<R, NINE, kSad>(lt + col, rcol, out, mask, 1);
+        vertical_walk<L, Tile::DW, NINE, kSad, false>(lt + col, rcol, out, mask, 1, 0);
       }
     }
     __syncthreads();  // the chunk's sums are in place

@@ -28,21 +28,50 @@
 // sums at region columns [M, M + 128), where nothing wraps, so it is
 // bit-equal to lr = 0.
 //
-// What bounds it on an H100: arithmetic and barriers, not bytes. Each block
-// reads its (8 + 2r) x (128 + 2r) left/right footprint per candidate from
-// L1/L2 (a 1080p level reads ~16 MB of images in all), and the work is
-// (2R+1) x nw candidates of cost + box sums per pixel; the right view
-// doubles the columns costed and adds one atomic per pixel and window.
+// What bounds it on an H100: instructions, their latency and barriers, not
+// bytes (a 1080p level reads ~16 MB of images in all). The work is (2R+1) x
+// nw candidates of cost and box sums per pixel; the right view doubles the
+// columns costed. The candidates of one window differ only by a shift of
+// the right image's column, so the design stages each window once and
+// costs all its candidates from shared memory:
 //
-// Design: one block per 8-row band of one 128-column plan tile (bands never
-// straddle plan tiles because tile_rows is a multiple of 8), so the block
-// reads its window bases once and its loop bounds are uniform. Per
-// candidate, all 256 threads (1) write the masked cost of the band plus its
-// box halo into shared memory, (2) take the vertical box sums, then (3) each
-// thread finishes the horizontal sums of its four pixels and updates their
-// WTA state in registers. No TPU mechanics carry over: no rolls, no 128-lane
-// padding, no aligned right-image blocks; the bases come from the same
-// integer plan (tile_windows_from_prior) that the reference builds.
+// - A block owns an 8-row band of a 128-column plan tile (bands never
+//   straddle plan tiles because tile_rows is a multiple of 8). Blocks of a
+//   32-column slice of a tile, four times as many at the coarse levels,
+//   were timed and not faster.
+// - The band's left image (or census planes) with its box halo is copied
+//   into shared memory once per block; per window, the right slab that
+//   covers its candidates (columns x - base - R .. x - base + R of the band's
+//   footprint, up to DC candidates at a time), clamped to the image: the cost
+//   rule is applied per (column, candidate) in the walk (1e6 where x - s
+//   falls outside [0, W), 0 outside the image or the shard's global rows).
+//   The slab is read by the vertical pass only, so the next window's is
+//   copied (cp.async, all of a thread's words in flight at once) while the
+//   horizontal pass runs.
+// - Vertical pass: one thread per (column, candidate; two with census and
+//   no right view) costs the column from the tiles and forms the vertical box sums in
+//   registers (common.cuh's vertical_walk, as K1 and K6), into shared
+//   memory. One barrier pair a window (a chunk of DC candidates), none per
+//   candidate.
+// - Horizontal pass: one thread per 8 neighbouring columns of a row reads
+//   its sums as float4s (swizzled: no bank conflicts), forms the horizontal
+//   sums in registers and updates the WTA of its pixels: cost, neighbours
+//   and the packed (window << 8 | offset index) of the first minimum, so the
+//   disparity is read from the plan once at the end.
+// - Right view: a warp is one row of the 256-column region; the circular
+//   box sums wrap modulo 256 at both ends. Column q' at offset o offers its
+//   cost to target q = q' + R - o, a shift uniform over the warp, so each
+//   thread takes the sums its 8 targets need from its left neighbours by
+//   shuffles and a 3-stage barrel shift, keeps their per-window first
+//   minimum in registers and, at the window's end, merges it by atomicMin
+//   into the u64 buffer.
+//
+// Windows 1..17 are compile-time instantiations (window 9 in the two-stage
+// association); larger windows, and tiles of many census planes that would
+// not fit in shared memory, run the same kernel with the box radius at run
+// time, which sums each output's costs from the images in global memory.
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -53,164 +82,263 @@ namespace {
 constexpr int BH = 8;     // output rows per block
 constexpr int TW = 128;   // plan tile width (part of the output contract)
 constexpr int CW = 256;   // the reference's cost-region width (right view)
-constexpr int NT = 256;   // threads per block
-constexpr int PPT = BH * TW / NT;  // pixels per thread
-constexpr int RPT = BH * CW / NT;  // right-view targets per thread
-static_assert(NT == CW, "thread t owns right-view region column t");
+constexpr int Q = 8;      // columns a thread of the horizontal pass takes
+constexpr int DC = 5;     // candidates a chunk (a window's at R <= 2)
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may use
+// candidates a vertical walk: two with census and no right view (the left
+// words are loaded once for both), one otherwise (timed on an H100: two are
+// 10-15% faster there, ~20% slower with SAD, ~5% slower with the right
+// view, whose kernel is at its register cap)
+constexpr int DW_CENSUS = 2;
 
-// box_ordered over a row of CW values taken circularly (the reference's
-// pltpu.roll over the cost region), same association.
-__device__ __forceinline__ float box_circular(const float* row, int q, int win) {
-  auto c = [&](int j) { return row[(q + j) & (CW - 1)]; };
-  if (win == 9) {
-    const float y0 = (c(0) + c(-1)) + c(1);
-    const float ym = (c(-3) + c(-4)) + c(-2);
-    const float yp = (c(3) + c(2)) + c(4);
-    return (y0 + ym) + yp;
+// A block's shared geometry: box radius R, NR cost rows, TW columns of the
+// left tile and of the sums (the band's forward columns and their box halo,
+// or the 256-column region), the right slab's SW = TW + DC - 1 and the sums'
+// physical row stride RS.
+struct RefGeo {
+  int R, NR, TW, SW, RS;
+  __host__ __device__ constexpr RefGeo(int r, int cols)
+      : R(r), NR(BH + 2 * r), TW(cols), SW(cols + DC - 1), RS(swz_width(cols)) {}
+  // words: the sums [DC][BH][RS], the left tile [P][NR][TW], the slab [P][NR][SW]
+  __host__ __device__ constexpr size_t words(int planes) const {
+    return (size_t)DC * BH * RS + (size_t)planes * NR * (TW + SW);
   }
-  const int r = win / 2;
-  float z = c(-r);
-  for (int j = -r + 1; j <= r; ++j) z = z + c(j);
-  return z;
-}
+};
 
-template <bool LR>
-__global__ void __launch_bounds__(NT) fused_refine_kernel(
-    const float* __restrict__ lg, const float* __restrict__ rg,
-    const int* __restrict__ lc, const int* __restrict__ rc, int nplanes,
-    const int* __restrict__ bases, const int* __restrict__ nw,
-    float* __restrict__ disp, unsigned long long* __restrict__ rbuf, int h,
-    int w, int nc, int K, int tile_rows, int R, int win, int M, int squared,
-    int g_row0, int g_h) {
-  extern __shared__ float smem[];
-  const int r = win / 2;
-  const int off = LR ? M : r;          // real column x0 - off is cost column 0
-  const int Q = LR ? CW : TW + 2 * r;  // cost columns
-  const int SR = BH + 2 * r;  // cost rows incl. the vertical box halo
-  float* C = smem;            // [SR][Q] masked cost
-  float* V = C + SR * Q;      // [BH][Q] vertical box sums
-  float* A = V + BH * Q;      // [BH][CW] circular horizontal sums (LR only)
+__host__ __device__ constexpr int sum_cols(bool lr, int r) { return lr ? CW : TW + 2 * r; }
 
-  const int jc = blockIdx.x;
-  const int y0 = blockIdx.y * BH;
-  const int tile = (y0 / tile_rows) * nc + jc;
-  const int x0 = jc * TW;
-  const int xo = x0 - off;
+template <bool LR, int R_>
+struct RefFront {
+  static constexpr int R = R_, BH = ::BH;
+  static constexpr int NR = RefGeo(R_, sum_cols(LR, R_)).NR;
+  static constexpr int TW = RefGeo(R_, sum_cols(LR, R_)).TW;
+  static constexpr int SW = RefGeo(R_, sum_cols(LR, R_)).SW;
+  static constexpr int RS = RefGeo(R_, sum_cols(LR, R_)).RS;
+  static constexpr int R4 = LR ? (R_ + 3) / 4 * 4 : 0;  // sums read left of a segment
+  static constexpr int NV = LR ? Q + 2 * R4 : (Q + 2 * R_ + 3) / 4 * 4;
+};
+
+struct RefArgs {
+  const float* lg;
+  const float* rg;
+  const int* lc;
+  const int* rc;
+  int nplanes;
+  const int* bases;
+  const int* nw;
+  float* disp;
+  unsigned long long* rbuf;
+  int h, w, nc, K, tile_rows, R, r, M, squared, g_row0, g_h;
+};
+
+// LR: with the right view (whole 256-column regions); RB: the box radius
+// (< 0: a.r at run time).
+template <bool LR, int RB, bool NINE>
+__global__ void __launch_bounds__(LR ? 2 * TW : TW, LR ? 2 : 4)
+    fused_refine_kernel(RefArgs a) {
+  constexpr int NT = LR ? 2 * TW : TW;
+  constexpr int TPR = LR ? CW / Q : TW / Q;  // threads a row of the horizontal pass
+  constexpr bool RT = RB < 0;
+  constexpr int RBc = RB < 0 ? 0 : RB;
+  constexpr int DWC = LR ? 1 : DW_CENSUS;  // census candidates a walk
+  using F = RefFront<LR, RBc>;
+  static_assert(!LR || TPR == 32, "a warp is a row of the region");
+  const RefGeo geo(RT ? a.r : RBc, sum_cols(LR, RT ? a.r : RBc));
+  const int r = geo.R, R = a.R, n = 2 * a.R + 1;
+  extern __shared__ float4 smem4[];
+  float* vs = reinterpret_cast<float*>(smem4);
+  uint32_t* lt = reinterpret_cast<uint32_t*>(vs + DC * BH * geo.RS);
+  const int planes = a.nplanes ? a.nplanes : 1;
+  uint32_t* rt = lt + planes * geo.NR * geo.TW;
+
   const int tid = threadIdx.x;
-  const int t = tid % TW;
-  const size_t plane = (size_t)h * w;
-  int nwt = nw[tile];
-  nwt = nwt < 1 ? 1 : (nwt > K ? K : nwt);  // the reference always runs window 0
-
-  float best[PPT], cm1[PPT], cb[PPT], cp1[PPT], prev[PPT];
-  int bests[PPT], oi[PPT], wbest[PPT];
-  float rbest[LR ? RPT : 1];
-  int roff[LR ? RPT : 1];
+  const int jc = blockIdx.x;
+  const int x0 = jc * TW;  // first forward column
+  const int y0 = blockIdx.y * BH;
+  const int tile = (y0 / a.tile_rows) * a.nc + jc;
+  const int xo = LR ? jc * TW - a.M : x0 - r;  // the real column of sums column 0
+  int nwt = a.nw[tile];
+  nwt = nwt < 1 ? 1 : (nwt > a.K ? a.K : nwt);  // the reference always runs window 0
+  // the cost rows that cost anything: inside [0, h) and the global [0, g_h)
+  const int ylo = max(0, -a.g_row0), yhi = min(a.h, a.g_h - a.g_row0);
+  const int klo = ylo - (y0 - r), khi = yhi - (y0 - r);
+  uint32_t rowmask = 0;
+  if (!RT) {
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    best[j] = kBig; cm1[j] = 0.f; cb[j] = kBig; cp1[j] = kBig;
-    bests[j] = 0; oi[j] = -2; wbest[j] = -1;
+    for (int k = 0; k < F::NR; ++k) {
+      if (k >= klo && k < khi) rowmask |= 1u << k;
+    }
+  }
+  // the left tile and the first slab: column t of a slab holds right column
+  // xo - s0 - (DC - 1) + t, s0 the chunk's first candidate
+  if (!RT) {
+    load_tile_async<NT>(lt, a.lg, a.lc, a.nplanes, a.h, a.w, y0 - r, xo, geo.NR, geo.TW);
+    load_tile_async<NT>(rt, a.rg, a.rc, a.nplanes, a.h, a.w, y0 - r,
+                        xo - (a.bases[tile * a.K] - R) - (DC - 1), geo.NR, geo.SW);
+  }
+
+  // horizontal pass: row j, columns [g * Q, g * Q + Q) of the sums (LR: of
+  // the region; the forward pixels are region columns [M, M + 128))
+  const int j = tid / TPR, g = tid % TPR;
+  const bool fwd = !LR || (g * Q >= a.M && g * Q < a.M + TW);
+  const int xf = LR ? xo + g * Q : x0 + g * Q;  // its first forward pixel
+  const int nvalid = fwd && y0 + j < a.h ? min(Q, a.w - xf) : 0;
+  float cb[Q], cm1[Q], cp1[Q], prev[Q], rb[LR ? Q : 1];
+  int key[Q], ro[LR ? Q : 1];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    cb[i] = kBig; cm1[i] = 0.f; cp1[i] = kBig; key[i] = -2;
   }
 
   for (int wi = 0; wi < nwt; ++wi) {
-    const int base = bases[tile * K + wi];
+    const int base = a.bases[tile * a.K + wi];
+    const int nbase = wi + 1 < nwt ? a.bases[tile * a.K + wi + 1] : 0;
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) prev[j] = 0.f;
+    for (int i = 0; i < Q; ++i) prev[i] = 0.f;
     if (LR) {
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) { rbest[j] = kBig; roff[j] = -1; }
+      for (int t = 0; t < Q; ++t) { rb[t] = kBig; ro[t] = -1; }
     }
-    for (int o = -R; o <= R; ++o) {
-      const int s = base + o;
-      // (1) masked cost
-      for (int e = tid; e < SR * Q; e += NT) {
-        const int k = e / Q, q = e - (e / Q) * Q;
-        const int y = y0 - r + k, x = xo + q;
-        float c = 0.f;
-        if (row_in_image(y, h, g_row0, g_h) && x >= 0 && x < w) {
-          const int xs = x - s;
-          if (xs < 0 || xs >= w) {
-            c = 1e6f;
-          } else if (nplanes) {
-            c = (float)hamming(lc, rc, nplanes, plane, (size_t)y * w, x, xs);
+    for (int oc0 = 0; oc0 < n; oc0 += DC) {
+      const int dc = min(DC, n - oc0);
+      const int s0 = base + oc0 - R;  // the chunk's first candidate
+      cp_async_wait_all();
+      __syncthreads();  // the chunk's slab (and the left tile) in place; the
+                        // last chunk's sums read
+      const int dw = a.nplanes && !RT ? DWC : 1;
+      for (int e = tid; e < (dc + dw - 1) / dw * geo.TW; e += NT) {
+        const int dd = e / geo.TW * dw, col = e % geo.TW;
+        const int x = xo + col, xs = x - s0 - dd;
+        const bool in = x >= 0 && x < a.w;
+        uint32_t bad = 0;  // candidates whose right column lies outside the image
+#pragma unroll
+        for (int q = 0; q < DWC; ++q) bad |= (uint32_t)(xs - q < 0 || xs - q >= a.w) << q;
+        float* out = vs + dd * BH * geo.RS + swz(col);
+        const uint32_t* rcol = rt + col + DC - 1 - dd;
+        if (RT) {
+          const int lo = in ? ylo : 0, hi = in ? yhi : 0;
+          const int xr = min(max(xs, 0), a.w - 1);
+          if (a.nplanes) {
+            vertical_walk_image<kCensus>(a.lg, a.rg, a.lc, a.rc, planes, a.h, a.w, y0, x, xr,
+                                         bad & 1u, lo, hi, out, BH, geo.RS, r);
+          } else if (a.squared) {
+            vertical_walk_image<kSsd>(a.lg, a.rg, a.lc, a.rc, 1, a.h, a.w, y0, x, xr, bad & 1u,
+                                      lo, hi, out, BH, geo.RS, r);
           } else {
-            const float diff = lg[(size_t)y * w + x] - rg[(size_t)y * w + xs];
-            c = squared ? diff * diff : fabsf(diff);
+            vertical_walk_image<kSad>(a.lg, a.rg, a.lc, a.rc, 1, a.h, a.w, y0, x, xr, bad & 1u,
+                                      lo, hi, out, BH, geo.RS, r);
+          }
+        } else {
+          const uint32_t mask = in ? rowmask : 0u;
+          if (a.nplanes) {
+            vertical_walk<F, DWC, NINE, kCensus, true>(lt + col, rcol, out, mask, planes, bad,
+                                                      dc - dd);
+          } else if (a.squared) {
+            vertical_walk<F, 1, NINE, kSsd, true>(lt + col, rcol, out, mask, 1, bad,
+                                                      dc - dd);
+          } else {
+            vertical_walk<F, 1, NINE, kSad, true>(lt + col, rcol, out, mask, 1, bad,
+                                                      dc - dd);
           }
         }
-        C[e] = c;
       }
-      __syncthreads();
-      // (2) vertical box sums
-      for (int e = tid; e < BH * Q; e += NT) {
-        const int k = e / Q, q = e - (e / Q) * Q;
-        V[e] = box_ordered(&C[(k + r) * Q + q], Q, win);
+      __syncthreads();  // the chunk's sums are in place; the slab is free
+      // copy the next chunk's slab while this one's sums are read
+      if (!RT && oc0 + DC < n) {
+        load_tile_async<NT>(rt, a.rg, a.rc, a.nplanes, a.h, a.w, y0 - r, xo - s0 - DC - (DC - 1),
+                            geo.NR, geo.SW);
+      } else if (!RT && wi + 1 < nwt) {
+        load_tile_async<NT>(rt, a.rg, a.rc, a.nplanes, a.h, a.w, y0 - r,
+                            xo - (nbase - R) - (DC - 1), geo.NR, geo.SW);
       }
-      __syncthreads();
-      if (LR) {
-        // (2b) horizontal sums of the whole region, circular
-        for (int e = tid; e < BH * CW; e += NT) {
-          const int k = e / CW, q = e - (e / CW) * CW;
-          A[e] = box_circular(&V[k * CW], q, win);
-        }
-        __syncthreads();
-      }
-      // (3) horizontal box sums + WTA (the next candidate's writes of C, V
-      // and A sit behind the next barriers)
-      const int oc = o + R;
+      for (int dd = 0; dd < dc; ++dd) {
+        const int oc = oc0 + dd;
+        const float* row = vs + (dd * BH + j) * geo.RS;
+        float z[Q];
+        if (RT) {
 #pragma unroll
-      for (int j = 0; j < PPT; ++j) {
-        const int kk = tid / TW + j * (NT / TW);
-        const float a = LR ? A[kk * CW + t + M] : box_ordered(&V[kk * Q + t + r], 1, win);
-        const bool upd = a < best[j];
-        const bool is_next = !upd && wbest[j] == wi && oi[j] == oc - 1;
-        if (upd) {
-          cm1[j] = prev[j]; cb[j] = a; best[j] = a;
-          bests[j] = s; oi[j] = oc; wbest[j] = wi;
-        }
-        if (is_next) cp1[j] = a;
-        prev[j] = a;
-      }
-      if (LR && tid >= 2 * R) {
-        // (4) right view: target q = tid takes region column q' = q - R + o,
-        // which costs right column u = x(q') - s = xo + q - R - base
-        const int qp = tid - R + o;
-        const int xc = xo + qp, u = xc - s;
-        if (xc >= 0 && xc < w && u >= 0 && u < w) {
+          for (int i = 0; i < Q; ++i) {
+            // the output's sums column (modulo 256 in the region)
+            const int c = LR ? g * Q + i : g * Q + i + r;
+            z[i] = box_rt([&](int t) { return row[swz(LR ? (c + t) & (CW - 1) : c + t)]; }, r);
+          }
+        } else {
+          float v[F::NV];
 #pragma unroll
-          for (int j = 0; j < RPT; ++j) {
-            const float a = A[j * CW + qp];
-            if (a < rbest[j]) { rbest[j] = a; roff[j] = oc; }
+          for (int m = 0; m < F::NV / 4; ++m) {
+            // logical float4 of the row (LR: starting R4 left of the
+            // segment, modulo the 64 of the region)
+            const int f = LR ? (g * (Q / 4) - F::R4 / 4 + m) & (CW / 4 - 1) : g * (Q / 4) + m;
+            const float4 q4 = *reinterpret_cast<const float4*>(row + 4 * (f + (f >> 3)));
+            v[4 * m] = q4.x; v[4 * m + 1] = q4.y; v[4 * m + 2] = q4.z; v[4 * m + 3] = q4.w;
+          }
+          box_run<RBc, NINE, F::R4 - (LR ? RBc : 0)>(v, z);
+        }
+        // the forward WTA: strict <, merged across windows in plan order;
+        // the subpixel pair only within one window
+        const int cur = wi << 8 | oc;
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const bool upd = z[i] < cb[i];
+          const bool nxt = !upd && key[i] == cur - 1;
+          if (upd) { cm1[i] = prev[i]; cb[i] = z[i]; key[i] = cur; }
+          if (nxt) cp1[i] = z[i];
+          prev[i] = z[i];
+        }
+        if (LR) {
+          // target q = g*Q + t takes column q - sh, sh = R - o = 2R - oc in
+          // [0, 2R]: from lane g - (sh >> 3) - 1 or g - (sh >> 3), element
+          // (t - (sh & 7)) mod Q
+          const int sh = 2 * R - oc, lsh = sh >> 3, bsh = sh & 7;
+          float c16[2 * Q];
+#pragma unroll
+          for (int i = 0; i < Q; ++i) {
+            c16[i] = __shfl_up_sync(0xffffffffu, z[i], lsh + 1);
+            c16[Q + i] = __shfl_up_sync(0xffffffffu, z[i], lsh);
+          }
+#pragma unroll
+          for (int st = 0; st < 3; ++st) {  // c16[i] <- c16[i - bsh], bsh < Q = 8
+            const int b = 1 << st;
+            const bool on = bsh & b;
+#pragma unroll
+            for (int i = 2 * Q - 1; i >= b; --i) c16[i] = on ? c16[i - b] : c16[i];
+          }
+#pragma unroll
+          for (int t = 0; t < Q; ++t) {
+            const int q = g * Q + t, xc = xo + q - sh, u = xo + q - R - base;
+            if (q >= 2 * R && xc >= 0 && xc < a.w && u >= 0 && u < a.w &&
+                c16[Q + t] < rb[t]) {
+              rb[t] = c16[Q + t];
+              ro[t] = oc;
+            }
           }
         }
       }
     }
-    if (LR) {
-      const int u = xo + tid - R - base;
-      const unsigned key = (unsigned)((jc * K + wi) * (2 * R + 1));
+    if (LR && y0 + j < a.h) {
+      const unsigned k0 = (unsigned)((jc * a.K + wi) * n);
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int y = y0 + j;
-        if (roff[j] < 0 || y >= h) continue;
+      for (int t = 0; t < Q; ++t) {
+        if (ro[t] < 0) continue;
+        const int u = xo + g * Q + t - R - base;
+        unsigned long long* p = a.rbuf + (size_t)(y0 + j) * a.w + u;
         const unsigned long long packed =
-            ((unsigned long long)__float_as_uint(rbest[j]) << 32) | (key + roff[j]);
-        atomicMin(&rbuf[(size_t)y * w + u], packed);
+            ((unsigned long long)__float_as_uint(rb[t]) << 32) | (k0 + ro[t]);
+        atomicMin(p, packed);
       }
     }
   }
 
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int y = y0 + tid / TW + j * (NT / TW);
-    const int x = x0 + t;
-    if (y >= h || x >= w) continue;
-    const float denom = cm1[j] - 2.0f * cb[j] + cp1[j];
-    float delta = fabsf(denom) > 1e-6f ? (cm1[j] - cp1[j]) / (2.0f * denom) : 0.f;
+  for (int i = 0; i < Q; ++i) {
+    if (i >= nvalid) continue;
+    const int oi = key[i] & 0xff;
+    const float denom = cm1[i] - 2.0f * cb[i] + cp1[i];
+    float delta = fabsf(denom) > 1e-6f ? (cm1[i] - cp1[i]) / (2.0f * denom) : 0.f;
     delta = fminf(fmaxf(delta, -0.5f), 0.5f);
-    const bool interior = oi[j] >= 1 && oi[j] <= 2 * R - 1;
-    float dv = (float)bests[j];
-    if (interior) dv = dv + delta;
-    disp[(size_t)y * w + x] = fminf(fmaxf(dv, 0.f), (float)(w - 1));
+    float dv = (float)(a.bases[tile * a.K + (key[i] >> 8)] + oi - R);
+    if (oi >= 1 && oi <= 2 * R - 1) dv = dv + delta;
+    a.disp[(size_t)(y0 + j) * a.w + xf + i] = fminf(fmaxf(dv, 0.f), (float)(a.w - 1));
   }
 }
 
@@ -237,26 +365,56 @@ __global__ void refine_emit_r_kernel(const unsigned long long* __restrict__ rbuf
   dispr[o] = (float)(bases[((y / tile_rows) * nc + jc) * K + wi] + off);
 }
 
+
+// shared memory of a block: the sums, and the tiles unless RB < 0
+template <bool LR>
+size_t refine_smem(const RefArgs& a, bool tiles) {
+  return 4 * RefGeo(a.r, sum_cols(LR, a.r)).words(tiles ? (a.nplanes ? a.nplanes : 1) : 0);
+}
+
+template <bool LR, int RB, bool NINE>
+int launch_refine(const RefArgs& a, void* stream) {
+  const dim3 grid(a.nc, (a.h + BH - 1) / BH);
+  auto kern = fused_refine_kernel<LR, RB, NINE>;
+  STEPTH_LAUNCH(kern, grid, LR ? 2 * TW : TW, refine_smem<LR>(a, RB >= 0), stream, a);
+}
+
+// Windows up to 17 whose tiles fit in shared memory run the compile-time
+// radius; the others read the images from global memory.
+template <bool LR>
+int launch_refine_window(const RefArgs& a, int win, void* stream) {
+  if (refine_smem<LR>(a, true) > kMaxSmem) return launch_refine<LR, -1, false>(a, stream);
+  if (win == 9) return launch_refine<LR, 4, true>(a, stream);
+  switch (a.r) {
+    case 0: return launch_refine<LR, 0, false>(a, stream);
+    case 1: return launch_refine<LR, 1, false>(a, stream);
+    case 2: return launch_refine<LR, 2, false>(a, stream);
+    case 3: return launch_refine<LR, 3, false>(a, stream);
+    case 4: return launch_refine<LR, 4, false>(a, stream);
+    case 5: return launch_refine<LR, 5, false>(a, stream);
+    case 6: return launch_refine<LR, 6, false>(a, stream);
+    case 7: return launch_refine<LR, 7, false>(a, stream);
+    case 8: return launch_refine<LR, 8, false>(a, stream);
+    default: return launch_refine<LR, -1, false>(a, stream);
+  }
+}
+
 }  // namespace
 
+// `rbuf` (lr = 1) must hold all ones (u64 max) on entry.
 extern "C" int stepth_fused_refine(
     const float* lg, const float* rg, const int* lc, const int* rc, int nplanes,
     const int* bases, const int* nw, float* disp, unsigned long long* rbuf,
     int h, int w, int nc, int K, int tile_rows, int R, int win, int M,
     int squared, int g_row0, int g_h, int lr, void* stream) {
-  const int r = win / 2;
-  const int Q = lr ? CW : TW + 2 * r;
-  const size_t smem =
-      sizeof(float) * ((size_t)(BH + 2 * r) * Q + BH * Q + (lr ? BH * CW : 0));
-  const dim3 grid(nc, (h + BH - 1) / BH);
-  if (lr) {
-    STEPTH_LAUNCH(fused_refine_kernel<true>, grid, NT, smem, stream, lg, rg, lc,
-                  rc, nplanes, bases, nw, disp, rbuf, h, w, nc, K, tile_rows, R,
-                  win, M, squared, g_row0, g_h);
+  if (h < 1 || w < 1 || nc < 1 || K < 1 || R < 0 || 2 * R + 1 > 255 || win < 1 ||
+      tile_rows < 8 || tile_rows % 8 || nplanes < 0) {
+    return (int)cudaErrorInvalidValue;
   }
-  STEPTH_LAUNCH(fused_refine_kernel<false>, grid, NT, smem, stream, lg, rg, lc,
-                rc, nplanes, bases, nw, disp, rbuf, h, w, nc, K, tile_rows, R,
-                win, M, squared, g_row0, g_h);
+  const RefArgs a{lg, rg, lc, rc, nplanes, bases, nw, disp, rbuf, h, w, nc, K, tile_rows,
+                  R, win / 2, M, squared, g_row0, g_h};
+  if (lr) return launch_refine_window<true>(a, win, stream);
+  return launch_refine_window<false>(a, win, stream);
 }
 
 extern "C" int stepth_refine_emit_r(const unsigned long long* rbuf,

@@ -88,36 +88,245 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---- K6: the volume ------------------------------------------------------
+//
+// What bounds K6 on an H100: bytes. It writes D·H·W values (531 MB in f32
+// at 1080x1920, D=64) and reads two images; its ~10 f32 operations per value
+// at window 5 take a fraction of the stores' time. So the design keeps the
+// store stream full and spends few instructions per value, with K1's cost
+// front (common.cuh):
+//
+// - A block owns a BH x BX output tile and a range of disparities (the
+//   wrapper splits D over blockIdx.z when the tiles alone would leave the
+//   card idle, as at the 135x240 coarse level), walked in chunks of DC.
+// - The left image (or its census planes) of the tile and its box halo is
+//   loaded once into shared memory, the right image's slab for SD
+//   disparities once per SD, both clamped to the image.
+// - Vertical pass: one thread per (DW disparities, column of the tile plus
+//   its halo) costs the column's cells from the tiles and forms their
+//   vertical box sums in registers (vertical_walk), into the chunk's half of
+//   a double buffer of sums, so one barrier a chunk suffices.
+// - Horizontal pass: one thread per Q neighbouring outputs of a row reads
+//   the Q + 2r sums it needs as float4s (a swizzled layout: no bank
+//   conflicts), forms the horizontal sums in registers and writes them as
+//   16-byte vectors with a streaming hint (st.global.cs), a warp two whole
+//   512-byte row segments of one d-plane (scalar stores where w is not a
+//   multiple of the vector or the tile is cut by the image).
+//
+// Windows 1..17 are compile-time instantiations (window 9 in the two-stage
+// association); larger windows, and tiles of many census planes that would
+// not fit in shared memory, run the same kernel with the radius at run
+// time, which sums each output's costs from the images in global memory.
 
-constexpr int VBH = 8;    // output rows per block
-constexpr int VBX = 128;  // output columns per block
-constexpr int VNT = 256;  // threads per block
+struct VolTile {
+  static constexpr int BH = 8, BX = 128, Q = 8, DC = 4, DW = 2, SD = 32, NT = 128;
+  static constexpr int TPR = BX / Q;  // threads a row of the horizontal pass
+  static_assert(BH * TPR == NT && SD % DC == 0 && DC % DW == 0 && Q % 4 == 0, "tile");
+};
+constexpr int kVolFillBlocks = 132 * 8;  // blocks that keep every SM busy
+constexpr size_t kMaxSmem = 232448;       // shared memory a block may use
 
-template <typename T>
-__global__ void __launch_bounds__(VNT) sgm_volume_kernel(
-    const float* __restrict__ lg, const float* __restrict__ rg,
-    const int* __restrict__ lc, const int* __restrict__ rc, int nplanes,
-    T* __restrict__ vol, int h, int w, int D, int win, int squared, int g_row0,
-    int g_h) {
-  extern __shared__ float smem[];
-  const int r = win / 2;
-  const int QC = VBX + 2 * r;
-  float* C = smem;                     // [VBH + 2r][QC] masked cost
-  float* V = C + (VBH + 2 * r) * QC;   // [VBH][QC] vertical box sums
-  const int x0 = blockIdx.x * VBX;
-  const int y0 = blockIdx.y * VBH;
-  const size_t plane = (size_t)h * w;
-  for (int d = 0; d < D; ++d) {
-    cost_front_vertical<VBH, VNT>(C, V, lg, rg, lc, rc, nplanes, h, w, x0, y0, QC, d,
-                                  win, squared, g_row0, g_h);
-    for (int e = threadIdx.x; e < VBH * VBX; e += VNT) {
-      const int k = e / VBX, q = e - (e / VBX) * VBX;
-      const int y = y0 + k, x = x0 + q;
-      if (y < h && x < w) {
-        vol[d * plane + (size_t)y * w + x] =
-            from_f32<T>(box_ordered(&V[k * QC + q + r], 1, win));
+// A K6 block's shared geometry at box radius r: NR cost rows, the left
+// tile's TW columns, the right slab's SW, the sums' physical row stride RS.
+struct VolGeo {
+  int R, NR, TW, SW, RS;
+  __host__ __device__ constexpr explicit VolGeo(int r)
+      : R(r), NR(VolTile::BH + 2 * r), TW(VolTile::BX + 2 * r),
+        SW(VolTile::BX + 2 * r + VolTile::SD - 1), RS(swz_width(VolTile::BX + 2 * r)) {}
+  // words: the double buffer of sums [2][DC][BH][RS], the left tile
+  // [P][NR][TW] and the right slab [P][NR][SW]
+  __host__ __device__ constexpr size_t words(int planes) const {
+    return (size_t)2 * VolTile::DC * VolTile::BH * RS + (size_t)planes * NR * (TW + SW);
+  }
+};
+
+template <int R_>
+struct VolFront {
+  static constexpr int R = R_, BH = VolTile::BH;
+  static constexpr int NR = VolGeo(R_).NR, TW = VolGeo(R_).TW, SW = VolGeo(R_).SW;
+  static constexpr int RS = VolGeo(R_).RS;
+  static constexpr int NV = (VolTile::Q + 2 * R + 3) / 4 * 4;  // sums a thread reads
+};
+
+struct VolArgs {
+  const float* lg;
+  const float* rg;
+  const int* lc;
+  const int* rc;
+  int nplanes;
+  void* vol;
+  int h, w, D, dz, squared, g_row0, g_h, r, vec;
+};
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// n <= Q values of one row of a d-plane at p: one or two 16-byte streaming
+// stores when the run is whole and aligned (vec), else one by one.
+__device__ __forceinline__ void store_run(float* p, const float (&z)[VolTile::Q], int n,
+                                          bool vec) {
+  if (vec && n == VolTile::Q) {
+#pragma unroll
+    for (int i = 0; i < VolTile::Q; i += 4) {
+      __stcs(reinterpret_cast<float4*>(p + i), make_float4(z[i], z[i + 1], z[i + 2], z[i + 3]));
+    }
+  } else {
+    for (int i = 0; i < n; ++i) p[i] = z[i];
+  }
+}
+__device__ __forceinline__ void store_run(__nv_bfloat16* p, const float (&z)[VolTile::Q],
+                                          int n, bool vec) {
+  if (vec && n == VolTile::Q) {
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(bf16_pair(z[0], z[1]), bf16_pair(z[2], z[3]),
+                                                   bf16_pair(z[4], z[5]), bf16_pair(z[6], z[7])));
+  } else {
+    for (int i = 0; i < n; ++i) p[i] = __float2bfloat16_rn(z[i]);
+  }
+}
+
+// R >= 0: the box radius at compile time; R < 0: a.r at run time.
+template <typename T, int R, bool NINE>
+__global__ void __launch_bounds__(VolTile::NT, 4) sgm_volume_kernel(VolArgs a) {
+  using TL = VolTile;
+  constexpr bool RT = R < 0;
+  const VolGeo geo(RT ? a.r : (R < 0 ? 0 : R));
+  const int r = geo.R;
+  extern __shared__ float4 smem4[];
+  float* vs = reinterpret_cast<float*>(smem4);
+  uint32_t* lt = reinterpret_cast<uint32_t*>(vs + 2 * TL::DC * TL::BH * geo.RS);
+  const int planes = a.nplanes ? a.nplanes : 1;
+  uint32_t* rt = lt + planes * geo.NR * geo.TW;
+
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * TL::BX, y0 = blockIdx.y * TL::BH;
+  const int dlo = blockIdx.z * a.dz, dhi = min(a.D, dlo + a.dz);
+  // the cost rows that cost anything: inside [0, h) and the global [0, g_h)
+  const int ylo = max(0, -a.g_row0), yhi = min(a.h, a.g_h - a.g_row0);
+  const int klo = ylo - (y0 - r), khi = yhi - (y0 - r);
+  uint32_t rowmask = 0;
+  if (!RT) {
+#pragma unroll
+    for (int k = 0; k < geo.NR; ++k) {
+      if (k >= klo && k < khi) rowmask |= 1u << k;
+    }
+  }
+  if (!RT) load_tile<TL::NT>(lt, a.lg, a.lc, a.nplanes, a.h, a.w, y0 - r, x0 - r, geo.NR, geo.TW);
+
+  const int j = tid / TL::TPR, g = tid % TL::TPR;  // horizontal pass: row, lane
+  const int xg = x0 + g * TL::Q;
+  const int nvalid = y0 + j < a.h ? min(TL::Q, a.w - xg) : 0;
+  const size_t plane = (size_t)a.h * a.w;
+  T* outp = static_cast<T*>(a.vol) + (size_t)(y0 + j) * a.w + xg;
+
+  int buf = 0;
+  for (int d0 = dlo; d0 < dhi; d0 += TL::DC, buf ^= 1) {
+    const int dc = min(TL::DC, dhi - d0);
+    const int ds = d0 - (d0 - dlo) % TL::SD;  // the slab's first disparity
+    if (!RT && d0 == ds) {
+      // the right slab of disparities [ds, ds + SD): column t holds right
+      // column x0 - r - ds - (SD - 1) + t (column 0 where it is < 0); the
+      // last chunk's walks read the old one before the last barrier
+      load_tile<TL::NT>(rt, a.rg, a.rc, a.nplanes, a.h, a.w, y0 - r, x0 - r - ds - (TL::SD - 1),
+                geo.NR, geo.SW);
+      __syncthreads();  // tiles in place
+    }
+    float* vb = vs + buf * TL::DC * TL::BH * geo.RS;
+    if (RT) {
+      for (int e = tid; e < dc * geo.TW; e += TL::NT) {
+        const int dd = e / geo.TW, col = e % geo.TW;
+        const int x = x0 - r + col, xr = max(x - (d0 + dd), 0);
+        const bool in = x >= 0 && x < a.w;
+        float* out = vb + dd * TL::BH * geo.RS + swz(col);
+        const int lo = in ? ylo : 0, hi = in ? yhi : 0;
+        if (a.nplanes) {
+          vertical_walk_image<kCensus>(a.lg, a.rg, a.lc, a.rc, planes, a.h, a.w, y0, x, xr,
+                                       false, lo, hi, out, TL::BH, geo.RS, r);
+        } else if (a.squared) {
+          vertical_walk_image<kSsd>(a.lg, a.rg, a.lc, a.rc, 1, a.h, a.w, y0, x, xr, false, lo,
+                                    hi, out, TL::BH, geo.RS, r);
+        } else {
+          vertical_walk_image<kSad>(a.lg, a.rg, a.lc, a.rc, 1, a.h, a.w, y0, x, xr, false, lo,
+                                    hi, out, TL::BH, geo.RS, r);
+        }
+      }
+    } else {
+      using F = VolFront<(R < 0 ? 0 : R)>;
+      // (a walk of the last chunk may run past dc: its sums are not read,
+      // and its slab column exists)
+      for (int e = tid; e < (dc + TL::DW - 1) / TL::DW * F::TW; e += TL::NT) {
+        const int dd = e / F::TW * TL::DW, col = e % F::TW;
+        const int x = x0 - F::R + col;
+        const uint32_t mask = x >= 0 && x < a.w ? rowmask : 0u;
+        float* out = vb + dd * TL::BH * F::RS + swz(col);
+        const uint32_t* rcol = rt + col + TL::SD - 1 - (d0 + dd - ds);
+        if (a.nplanes) {
+          vertical_walk<F, TL::DW, NINE, kCensus, false>(lt + col, rcol, out, mask, planes, 0);
+        } else if (a.squared) {
+          vertical_walk<F, TL::DW, NINE, kSsd, false>(lt + col, rcol, out, mask, 1, 0);
+        } else {
+          vertical_walk<F, TL::DW, NINE, kSad, false>(lt + col, rcol, out, mask, 1, 0);
+        }
       }
     }
+    __syncthreads();  // the chunk's sums are in place (and the chunk before
+                      // last's horizontal pass is done with this buffer)
+    if (nvalid <= 0) continue;
+#pragma unroll
+    for (int dd = 0; dd < TL::DC; ++dd) {
+      if (dd >= dc) break;
+      const float* row = vb + (dd * TL::BH + j) * geo.RS;
+      float z[TL::Q];
+      if (RT) {
+#pragma unroll
+        for (int i = 0; i < TL::Q; ++i) {
+          const int c = g * TL::Q + i + r;  // the output's sums column
+          z[i] = box_rt([&](int t) { return row[swz(c + t)]; }, r);
+        }
+      } else {
+        using F = VolFront<(R < 0 ? 0 : R)>;
+        float v[F::NV];
+#pragma unroll
+        for (int m = 0; m < F::NV / 4; ++m) {
+          const int f = g * (TL::Q / 4) + m;  // logical float4 of the row
+          const float4 q = *reinterpret_cast<const float4*>(row + 4 * (f + (f >> 3)));
+          v[4 * m] = q.x; v[4 * m + 1] = q.y; v[4 * m + 2] = q.z; v[4 * m + 3] = q.w;
+        }
+        box_run<F::R, NINE, 0>(v, z);
+      }
+      store_run(outp + (size_t)(d0 + dd) * plane, z, nvalid, a.vec);
+    }
+  }
+}
+
+// shared memory of a block: the sums, and the tiles unless R < 0
+size_t volume_smem(const VolArgs& a, bool tiles) {
+  return 4 * VolGeo(a.r).words(tiles ? (a.nplanes ? a.nplanes : 1) : 0);
+}
+
+template <typename T, int R, bool NINE>
+int launch_volume(const VolArgs& a, dim3 grid, void* stream) {
+  auto kern = sgm_volume_kernel<T, R, NINE>;
+  STEPTH_LAUNCH(kern, grid, VolTile::NT, volume_smem(a, R >= 0), stream, a);
+}
+
+// Windows up to 17 whose tiles fit in shared memory run the compile-time
+// radius; the others read the images from global memory.
+template <typename T>
+int launch_volume_window(const VolArgs& a, int win, dim3 grid, void* stream) {
+  if (volume_smem(a, true) > kMaxSmem) return launch_volume<T, -1, false>(a, grid, stream);
+  if (win == 9) return launch_volume<T, 4, true>(a, grid, stream);
+  switch (a.r) {
+    case 0: return launch_volume<T, 0, false>(a, grid, stream);
+    case 1: return launch_volume<T, 1, false>(a, grid, stream);
+    case 2: return launch_volume<T, 2, false>(a, grid, stream);
+    case 3: return launch_volume<T, 3, false>(a, grid, stream);
+    case 4: return launch_volume<T, 4, false>(a, grid, stream);
+    case 5: return launch_volume<T, 5, false>(a, grid, stream);
+    case 6: return launch_volume<T, 6, false>(a, grid, stream);
+    case 7: return launch_volume<T, 7, false>(a, grid, stream);
+    case 8: return launch_volume<T, 8, false>(a, grid, stream);
+    default: return launch_volume<T, -1, false>(a, grid, stream);
   }
 }
 
@@ -640,22 +849,23 @@ struct ScanWtaLaunch {
 
 // bf16 != 0 selects __nv_bfloat16 volumes, else f32.
 
+// The volume's bytes are written with 16-byte vectors where `vol` is
+// 16-byte aligned and w a multiple of the vector (4 f32, 8 bf16).
 extern "C" int stepth_sgm_volume(const float* lg, const float* rg, const int* lc,
                                  const int* rc, int nplanes, void* vol, int bf16, int h,
                                  int w, int D, int win, int squared, int g_row0, int g_h,
                                  void* stream) {
-  const int r = win / 2;
-  const int QC = VBX + 2 * r;
-  const size_t smem = sizeof(float) * ((size_t)(VBH + 2 * r) * QC + VBH * QC);
-  const dim3 grid((w + VBX - 1) / VBX, (h + VBH - 1) / VBH);
-  if (bf16) {
-    auto kern = sgm_volume_kernel<__nv_bfloat16>;
-    STEPTH_LAUNCH(kern, grid, VNT, smem, stream, lg, rg, lc, rc, nplanes,
-                  (__nv_bfloat16*)vol, h, w, D, win, squared, g_row0, g_h);
-  }
-  auto kern = sgm_volume_kernel<float>;
-  STEPTH_LAUNCH(kern, grid, VNT, smem, stream, lg, rg, lc, rc, nplanes, (float*)vol, h, w,
-                D, win, squared, g_row0, g_h);
+  if (D < 1 || win < 1 || nplanes < 0 || h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const int gx = (w + VolTile::BX - 1) / VolTile::BX, gy = (h + VolTile::BH - 1) / VolTile::BH;
+  const int nchunk = (D + VolTile::DC - 1) / VolTile::DC;
+  const int nz = min(nchunk, max(1, (kVolFillBlocks + gx * gy - 1) / (gx * gy)));
+  const int dz = (nchunk + nz - 1) / nz * VolTile::DC;
+  const dim3 grid(gx, gy, (D + dz - 1) / dz);
+  const bool aligned = ((uintptr_t)vol & 15) == 0 && w % (bf16 ? 8 : 4) == 0;
+  const VolArgs a{lg, rg, lc, rc, nplanes, vol, h, w, D, dz, squared, g_row0, g_h, win / 2,
+                  (int)aligned};
+  if (bf16) return launch_volume_window<__nv_bfloat16>(a, win, grid, stream);
+  return launch_volume_window<float>(a, win, grid, stream);
 }
 
 // acc == NULL: the first direction (out = L); otherwise out = acc + L, and

@@ -213,6 +213,57 @@ def test_plans_equal_on_census_scenes(rng, scene):
         assert multi > 0
 
 
+# Plans the prior never gives (h, w, R, tile_rows, kind): base windows at
+# negative disparities, at and beyond w - R, nw = 0 (window 0 still runs)
+# and nw above K (clamped to K); tile_rows 8 and 24
+PLAN_EDGES = [
+    (24, 200, 2, 8, "negative"),
+    (24, 200, 2, 8, "beyond"),
+    (24, 200, 1, 8, "nw0"),
+    (24, 200, 4, 24, "nwK"),
+]
+
+
+def _edge_plan(rng, h, w, tile_rows, kind, K=4):
+    nr, nc = -(-h // tile_rows), -(-w // 128)
+    bases = rng.integers(0, 40, (nr, nc, K)).astype(np.int32)
+    nw = rng.integers(1, K + 1, (nr, nc)).astype(np.int32)
+    if kind == "negative":
+        bases[..., 0] = -3
+        bases[0, 0, 1] = -1
+    elif kind == "beyond":
+        bases[..., 0] = w - 1
+        bases[0, -1, 1] = w + 3
+        nw[:] = 2
+    elif kind == "nw0":
+        nw[:] = 0
+    else:
+        nw[:] = K + 2
+    return bases, nw
+
+
+@pytest.mark.parametrize("lr", [False, True])
+@pytest.mark.parametrize("h, w, radius, tile_rows, kind", PLAN_EDGES)
+def test_given_plan_matches_pallas(rng, monkeypatch, h, w, radius, tile_rows, kind, lr):
+    """K2's plain version on a given plan, both outputs exactly equal to the
+    reference kernel run on the same plan (its planner replaced), census."""
+    left = rng.integers(0, 256, (h, w)).astype(np.float32)
+    right = np.roll(left, -SHIFT, axis=1)
+    bases, nw = _edge_plan(rng, h, w, tile_rows, kind)
+    monkeypatch.setattr(pallas_refine, "tile_windows_from_prior",
+                        lambda *a, **k: (jnp.asarray(bases), jnp.asarray(nw)))
+    cfg = dict(window=9, cost="census", census_window=7)
+    want = pallas_refine.refine_level(
+        jnp.asarray(left), jnp.asarray(right), jnp.zeros((h, w), jnp.float32),
+        RefMatchConfig(**cfg), radius, 256, tile_rows, interpret=True, lr=lr,
+        max_windows=bases.shape[-1])
+    got = fused_refine.refine_planned(torch.from_numpy(left), torch.from_numpy(right),
+                                      torch.from_numpy(bases), torch.from_numpy(nw),
+                                      MatchConfig(**cfg), radius, tile_rows, lr=lr)
+    for a, b in zip(want, got) if lr else ((want, got),):
+        np.testing.assert_array_equal(np_(b), np_(a))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["smooth", "step"])
 def test_kernel_matches_plain_on_card(cuda, kind):
@@ -246,3 +297,29 @@ def test_census_right_view_kernel_matches_plain_on_card(cuda):
         before[0] + 1, before[1] + 1)
     want = fused_refine.refine_level_plain(lg, rg, prior, *args, max_windows=16, lr=True)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lr", [False, True])
+@pytest.mark.parametrize("cost", ["sad", "census"])
+@pytest.mark.parametrize("h, w, radius, tile_rows, kind",
+                         PLAN_EDGES + [(72, 130, 2, 64, "negative"), (20, 100, 2, 8, "nwK")])
+@pytest.mark.parametrize("census_window", [7, 13])
+def test_given_plan_kernel_matches_plain_on_card(cuda, h, w, radius, tile_rows, kind, cost,
+                                                 lr, census_window):
+    """K2 (and its right-view emit) bit-equal to the plain version on the
+    edge plans, on float images, also at w = 130 and w < 128, and with 6
+    census planes (census window 13: with the right view the tiles do not
+    fit in shared memory and the images are read from global memory)."""
+    rng = np.random.default_rng(13)
+    left = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    right = np.roll(left, -SHIFT, axis=1) + rng.uniform(0, 3, (h, w)).astype(np.float32)
+    bases, nw = _edge_plan(rng, h, w, tile_rows, kind)
+    args = (torch.as_tensor(left, device=cuda), torch.as_tensor(right, device=cuda),
+            torch.as_tensor(bases, device=cuda), torch.as_tensor(nw, device=cuda),
+            MatchConfig(window=9, cost=cost, census_window=census_window), radius, tile_rows)
+    got = fused_refine.refine_planned(*args, lr=lr)
+    want = fused_refine.refine_planned_plain(*args, lr=lr)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got) if lr else ((want, got),):
+        assert torch.equal(a, b)

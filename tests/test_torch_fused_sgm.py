@@ -67,6 +67,31 @@ def test_volume_row_window_matches_pallas(rng):
     _equal([want[:, :40, :72]], [got])
 
 
+# K6's edge cases (h, w, D, window, cost, census_window, g_row0, g_h): D = 1,
+# w below D, windows 1 and 11 (census with 3 planes), a halo-extended shard
+VOLUME_EDGES = [
+    (20, 72, 1, 5, "sad", 7, 0, None),
+    (20, 12, 16, 7, "ssd", 7, 0, None),
+    (20, 72, 8, 1, "sad", 7, 0, None),
+    (20, 72, 8, 11, "census", 9, 0, None),
+    (24, 72, 8, 7, "census", 9, -5, 15),
+]
+
+
+@pytest.mark.parametrize("h, w, D, window, cost, census_window, g_row0, g_h", VOLUME_EDGES)
+def test_volume_edges_match_pallas(rng, h, w, D, window, cost, census_window, g_row0, g_h):
+    """K6 at the shapes its tiling must keep: exact on integer images."""
+    left, right = _int_pair(rng, h, w, 3)
+    cfg = dict(num_disparities=D, window=window, cost=cost, census_window=census_window)
+    want, _ = pallas_sgm._aggregated_volume(jnp.asarray(left), jnp.asarray(right),
+                                            RefMatchConfig(**cfg), 16, True, g_row0=g_row0,
+                                            g_h=g_h)
+    got = fused_sgm.aggregated_volume(_torch(left), _torch(right), MatchConfig(**cfg),
+                                      g_row0=g_row0, g_h=g_h)
+    assert got.shape == (D, h, w)
+    _equal([want[:, :h, :w]], [got])
+
+
 S, T, S_REAL, T_REAL = 48, 256, 41, 247
 
 
@@ -215,3 +240,26 @@ def test_scan_wta_rejects_negative_penalties_on_card(cuda):
     _, _, vol = _card_volume(cuda, cfg, torch.float32, 16, 64)
     with pytest.raises(ValueError, match="p1, p2"):
         fused_sgm.scan_wta_direction(vol, vol.clone(), -1.0, 4.0, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h, w, D, window, cost, census_window, g_row0, g_h",
+                         VOLUME_EDGES + [(40, 300, 200, 17, "sad", 7, 0, None),
+                                         (30, 131, 33, 21, "census", 9, -3, 25),
+                                         (20, 140, 16, 17, "census", 15, 0, None)])
+def test_volume_edges_match_plain_on_card(cuda, h, w, D, window, cost, census_window, g_row0,
+                                          g_h, dtype):
+    """K6 bit-equal to its plain version at the edge cases, on float images,
+    at D = 200, at a window above 17 (the run-time radius) and with 7 census
+    planes (tiles too large for shared memory: the images are read from
+    global memory)."""
+    rng = np.random.default_rng(11)
+    left = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    right = np.roll(left, -3, axis=1) + rng.uniform(0, 4, (h, w)).astype(np.float32)
+    lg, rg = _torch(left).to(cuda), _torch(right).to(cuda)
+    cfg = MatchConfig(num_disparities=D, window=window, cost=cost, census_window=census_window)
+    got = fused_sgm.aggregated_volume(lg, rg, cfg, dtype, g_row0, g_h)
+    want = fused_sgm.aggregated_volume_plain(lg, rg, cfg, dtype, g_row0, g_h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
