@@ -58,7 +58,13 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       ``K8_EDGES`` (D = 1, 16, 33, 64, 128, f32 and bf16, uniqueness on
       and off, h = 1, 2, 9, w = 1, 17, 300); K10 relayed over shards of 13,
       28 and 29 rows; K11 with 1–4 channels, every width residue mod 4,
-      views with a storage offset and NaN/inf/far map entries.
+      views with a storage offset and NaN/inf/far map entries; then
+      (``check_post_edges``) K3 on ``K3_EDGES`` and K5 on ``K5_EDGES`` (h
+      1-1080, w 1-4100: every residue mod 4, above K5's 2048-column
+      on-chip row; views one row or one element into their storage) on maps
+      holding NaN, ±inf and ±0, K5 with rows all, none, one (first or last
+      column) or 1 in 500 valid; NaN must sit where the plain version has
+      it, every other value in the same bits.
    Kernel and plain version add the same values in the same order, so every
    comparison must be bit-equal (the "close" rule is checked too);
 4. end to end through the user's entry points, each with the launch counts
@@ -384,6 +390,105 @@ K2_EDGES = (
     (30, 260, 2, 5, "ssd", 7, True, 8, 0, None, "nw1"),
     (24, 200, 2, 9, "census", 13, True, 8, 0, None, "nw1"),
 )
+
+
+# K3's and K5's edge cases (h, w): heights down to one row, widths of every
+# residue mod 4 (w % 4 != 0: the scalar paths), below and above a warp's 128
+# columns, and above K5's 2048-column on-chip row (2049, 4100: rows in
+# chunks); and (h, w, view) for views that start one row into a width-1919
+# map (rows not 16-byte aligned: scalar), one row into a width-1920 map
+# (aligned: vector) and one element into a buffer (w % 4 = 0, misaligned)
+POST_EDGE_W = (1, 2, 3, 5, 31, 33, 127, 129, 1921, 2049, 4100)
+K3_EDGES = [(h, w) for h in (1, 2, 3, 7, 1080) for w in POST_EDGE_W]
+POST_EDGE_VIEWS = [(h, w, view) for h in (7, 1080)
+                   for w, view in ((1919, "row"), (1920, "row"), (1920, "element"))]
+# K5's rows take one of FILL_PATTERNS validity patterns each (edge_validity)
+FILL_PATTERNS = 6
+K5_EDGES = [(h, w, k) for h, w in K3_EDGES for k in range(FILL_PATTERNS)]
+
+
+def edge_values(rng, h, w):
+    """f32[h, w] of uniform [0, 64) with NaN, +inf, −inf, +0 and −0 at 5%
+    each, and NaN, ±inf at the four corners."""
+    x = rng.uniform(0, 64, (h, w)).astype(np.float32)
+    u = rng.uniform(size=(h, w))
+    for i, v in enumerate((np.nan, np.inf, -np.inf, 0.0, -0.0)):
+        x[(u >= 0.05 * i) & (u < 0.05 * (i + 1))] = v
+    x[0, 0], x[0, -1], x[-1, 0], x[-1, -1] = np.nan, np.inf, -np.inf, np.nan
+    return x
+
+
+def edge_validity(rng, h, w, k):
+    """bool[h, w] whose row y takes pattern (y + k) % FILL_PATTERNS: 70%
+    valid, 1 in 500 valid (runs across K5's chunks), none, all, only
+    column 0, only column w − 1."""
+    v = np.zeros((h, w), bool)
+    for y in range(h):
+        p = (y + k) % FILL_PATTERNS
+        if p == 0:
+            v[y] = rng.uniform(size=w) < 0.7
+        elif p == 1:
+            v[y] = rng.uniform(size=w) < 0.002
+        elif p == 3:
+            v[y] = True
+        elif p == 4:
+            v[y, 0] = True
+        elif p == 5:
+            v[y, -1] = True
+    return v
+
+
+def edge_view(a, view, dev):
+    """``a`` on ``dev`` as a contiguous view that does not start its
+    storage: ``"row"``, one row into a map one row taller; ``"element"``,
+    one element into a buffer; else ``a`` itself."""
+    t = torch.as_tensor(a, device=dev)
+    if view == "row":
+        buf = torch.cat([t[:1], t])
+        return buf[1:]
+    if view == "element":
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:].copy_(t.flatten())
+        return buf[1:].view(t.shape)
+    return t
+
+
+def bits_equal(want, got):
+    """NaN at the same pixels and equal bits at every other pixel (the sign
+    of a zero included)."""
+    nw, ng = torch.isnan(want), torch.isnan(got)
+    return bool(torch.equal(nw, ng) and torch.equal(
+        want.contiguous().view(torch.int32)[~nw], got.contiguous().view(torch.int32)[~ng]))
+
+
+def check_post_edges(dev, err):
+    """K3 on ``K3_EDGES`` and K5 on ``K5_EDGES`` and on the offset views of
+    ``POST_EDGE_VIEWS`` (every validity pattern), against their plain
+    versions on maps of ``edge_values`` (the ``cuda``-marked cases of
+    ``tests/test_torch_fused_post.py``): NaN where the plain version has
+    NaN, the same bits elsewhere; any difference raises."""
+    from stepth_tpu_torch.match import fused_post
+
+    rng = np.random.default_rng(SEED + 9)
+    cases = [(h, w, None) for h, w in K3_EDGES] + POST_EDGE_VIEWS
+    for h, w, view in cases:
+        x = edge_values(rng, h, w)
+        xt = edge_view(x, view, dev)
+        got, want = fused_post.median3_fused(xt), fused_post.median3_plain(xt)
+        torch.cuda.synchronize()
+        if not bits_equal(want, got):
+            raise AssertionError(f"K3 {h}x{w} view {view}: not bit-equal (NaN as NaN)")
+        err("K3", 0.0)
+        for k in range(FILL_PATTERNS):
+            vt = edge_view(edge_validity(rng, h, w, k), view, dev)
+            got, want = fused_post.fill_invalid_fused(xt, vt), fused_post.fill_invalid_plain(xt, vt)
+            torch.cuda.synchronize()
+            if not bits_equal(want, got):
+                raise AssertionError(f"K5 {h}x{w} view {view} patterns from {k}: not bit-equal")
+            err("K5", 0.0)
+    print(f"  K3: {len(cases)} edge cases, K5: {len(cases) * FILL_PATTERNS}, bit-equal with NaN as "
+          f"NaN (h 1-1080, w 1-4100, offset views; NaN, +-inf, +-0; rows all, none, one or "
+          f"1/500 valid)")
 
 
 def edge_plan(rng, h, w, tile_rows, kind, radius, K=4):
@@ -1260,11 +1365,12 @@ def main() -> int:
     print(f"  K10 ↓y {th3}x{W} D=64 shard: kernel {times['K10'][0]:.4f} ms, plain "
           f"{times['K10'][1]:.4f} ms (plain: median of {PLAIN_SGM_REPS})")
 
-    # 3i. the edges of K1, K2, K6, K7, K8, K10 and K11
-    print("== K1, K2, K6, K7, K8, K10 and K11 on ragged shapes, every D, edge plans, "
-          "offset views (vs plain versions)")
+    # 3i. the edges of K1, K2, K3, K5, K6, K7, K8, K10 and K11
+    print("== K1, K2, K3, K5, K6, K7, K8, K10 and K11 on ragged shapes, every D, edge plans, "
+          "offset views, NaN/inf/signed-zero maps (vs plain versions)")
     check_cost_front_edges(dev, err)
     check_edges(dev, err)
+    check_post_edges(dev, err)
 
     # 4a. the SAD slice end to end, through the user's entry point
     print(f"== end to end: StereoModel(backend='hierarchical-pallas'), sad, {H}x{W}")

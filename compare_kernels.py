@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's matchers (K1, K2), volume (K6), scans (K7, K8, K10) and remap (K11) kernels
-against an earlier version of them, in turns, on one NVIDIA GPU.
+"""Time the port's matchers (K1, K2), volume (K6), scans (K7, K8, K10), remap (K11),
+fill (K5) and median (K3) kernels against an earlier version of them, in
+turns, on one NVIDIA GPU.
 
     python3 compare_kernels.py --old-csrc DIR [--out FILE]
 
@@ -32,13 +33,26 @@ own beside the current one. Both versions run on the same inputs:
   accumulator, and three K7 launches of the 135×240 D=16 coarse level;
 - K10 on one 360×1920 shard, D=64, seeded from a carry;
 - K11 on a 1080×1920×3 view through the 1080p rig map of ``chip_smoke.py``,
-  and ``grid_sample`` on the same view as a yardstick.
+  and ``grid_sample`` on the same view as a yardstick;
+- K5 and K3 on the inputs the pipelines give them: production's level 0
+  at 1080×1920 (census, LR mask), the 135×240 coarse SGM level of
+  ``hierarchical-sgm`` production (path 2's second K5), rows 270–539 of
+  the production map (a 270-row shard, an aligned view into it) and a
+  random map with ~30% invalid pixels; then old and new K3 on a 1080×1920
+  map with 1% each of NaN, +inf and −inf, each against the plain version
+  (NaN compared by position: an old K3 whose exchanges drop NaN has its
+  mismatch recorded, not raised; the new kernel must match);
+- the device-bound frames, ``flagship()`` and path 3 (``sgm-pallas``, 4
+  directions, D=64, window 5, LR) at 1080×1920, with every kernel launched
+  from the old library or from the new one (their disparities held
+  equal): CUDA events around one frame, 10 in turns, 5 times; the median
+  of the 5 medians and their range.
 
 Each measurement is CUDA events around ``LAUNCHES`` back-to-back launches
 divided by their number (device time: a direct launch costs the host far
 less than the kernel takes), repeated ``ROUNDS`` times in the order old,
 new, new, old, ...; the medians are printed. The two versions' outputs must
-be equal bit for bit. The last line is one JSON object with the card's name
+be equal bit for bit (on NaN-free inputs). The last line is one JSON object with the card's name
 and power limit (``nvidia-smi``) and every median.
 """
 
@@ -400,6 +414,121 @@ def main() -> int:
         nchw, grid, mode="bilinear", padding_mode="border", align_corners=True)
     result["K11 1080x1920x3 rig map, ms"] = turns(fns)
     print(f"K11: {result['K11 1080x1920x3 rig map, ms']}")
+    # K5 and K3 on the maps the pipelines give them: production's level 0
+    # (1080x1920, its LR mask), path 2's coarse SGM level (135x240, K5's
+    # second launch there), a 270-row shard of the production map (an
+    # aligned view into it) and a random map with ~30% invalid pixels
+    post_in = {}
+
+    def capture(tag, fn):
+        def run(*a):
+            post_in.setdefault(tag, a)
+            return fn(*a)
+        return run
+
+    from stepth_tpu_torch.match import fused_post
+    census = MatchConfig(num_disparities=128, window=9, cost="census")
+    pyr = PyramidConfig(levels=4, coarsest_disparities=16)
+    fused_refine._match_hierarchical(
+        fused_refine.FUSED._replace(fill=capture("K5 production", fused_post.fill_invalid_fused),
+                                    median=capture("K3 production", fused_post.median3_fused)),
+        lg, rg, census, pyr, 64, True, "wta", None)
+    sgm_path = fused_sgm.FUSED._replace(fill=capture("K5 coarse", fused_post.fill_invalid_fused),
+                                        median=capture("K3 coarse", fused_post.median3_fused))
+    fused_refine._match_hierarchical(
+        fused_refine.FUSED._replace(sgm=lambda l_, r_, c_, s_, tile_rows=16:
+                                    fused_sgm._match_pair_sgm(sgm_path, l_, r_, c_, s_, None)),
+        lg, rg, census, pyr, 64, True, "sgm", None, SGMConfig(directions=4))
+    disp, valid = post_in["K5 production"]
+    rand = torch.rand((H, W), generator=gen, device=dev) * 100
+    rand_valid = torch.rand((H, W), generator=gen, device=dev) >= 0.3
+    k5_maps = {
+        "production 1080x1920": (disp, valid),
+        "path 2 coarse SGM level 135x240": post_in["K5 coarse"],
+        "production rows 270-539 (a 270-row shard, view)": (disp[270:540], valid[270:540]),
+        f"random 1080x1920, {float((~rand_valid).float().mean()):.3f} invalid": (rand, rand_valid),
+    }
+    k3_maps = {
+        "production 1080x1920": post_in["K3 production"][0],
+        "path 2 coarse SGM level 135x240": post_in["K3 coarse"][0],
+        "production rows 270-539 (a 270-row shard, view)": post_in["K3 production"][0][270:540],
+        "random 1080x1920": rand,
+    }
+    for tag, (d_, v_) in k5_maps.items():
+        out = torch.empty_like(d_)
+        a = (d_.data_ptr(), v_.data_ptr(), out.data_ptr(), *d_.shape)
+        same(fused_post.K5, [out], *a)
+        result[f"K5 {tag}, ms"] = turns(versions(fused_post.K5, *a))
+        print(f"K5 {tag}: {result[f'K5 {tag}, ms']}")
+    for tag, x_ in k3_maps.items():
+        out = torch.empty_like(x_)
+        a = (x_.data_ptr(), out.data_ptr(), *x_.shape)
+        same(fused_post.K3, [out], *a)
+        result[f"K3 {tag}, ms"] = turns(versions(fused_post.K3, *a))
+        print(f"K3 {tag}: {result[f'K3 {tag}, ms']}")
+    # the NaN rule: the median of a map with NaN and +-inf, old and new
+    # against the plain version (NaN compared by position)
+    x_ = rand.clone()
+    x_[torch.rand((H, W), generator=gen, device=dev) < 0.01] = float("nan")
+    x_[torch.rand((H, W), generator=gen, device=dev) < 0.01] = float("inf")
+    x_[torch.rand((H, W), generator=gen, device=dev) < 0.01] = -float("inf")
+    want = fused_post.median3_plain(x_)
+    nan_rule = {"plain NaN pixels": int(torch.isnan(want).sum())}
+    for v, lib in (("old", old), ("new", kernels.load())):
+        out = torch.full_like(x_, 7.0)
+        bind(lib, fused_post.K3)(x_.data_ptr(), out.data_ptr(), H, W)
+        torch.cuda.synchronize()
+        nan_rule[f"{v} NaN pixels"] = int(torch.isnan(out).sum())
+        nan_rule[f"{v} equal to plain (NaN as NaN)"] = chip_smoke.bits_equal(want, out)
+    result["K3 1080x1920 with 1% NaN, +inf, -inf each"] = nan_rule
+    print(f"K3 NaN rule: {nan_rule}")
+    if not nan_rule["new equal to plain (NaN as NaN)"]:
+        raise AssertionError("K3: the new kernel does not follow the plain version's NaN rule")
+
+    # the device-bound frames, every kernel launched from the old library or
+    # from the new one, in turns
+    from stepth_tpu_torch.models.stereo import StereoModel, flagship
+    from stepth_tpu_torch.ops import fused_remap as remap_mod
+    every = (fused_dense.K1, fused_refine.K2, fused_refine.K2_EMIT, fused_post.K3,
+             fused_post.K4, fused_post.K5, fused_sgm.K6, fused_sgm.K7, fused_sgm.K8,
+             fused_sgm.K9, fused_sgm.K10, remap_mod.K11)
+
+    def launch_from(lib):
+        for k in every:
+            k._fn = None
+            if lib is not None:
+                fn = getattr(lib, k.symbol)
+                fn.argtypes = k.argtypes + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                k._fn = fn
+
+    left_t, right_t = (torch.as_tensor(a, device=dev) for a in (left, right_img))
+    path3 = StereoModel(backend="sgm-pallas", match=MatchConfig(
+        num_disparities=64, window=5, cost="sad", lr_threshold=1.0), sgm=SGMConfig(directions=4))
+    for name, model in (("flagship()", flagship()), ("path 3, sgm-pallas 4 directions", path3)):
+        frames = {}
+        for v, lib in (("old", old), ("new", None)):
+            launch_from(lib)
+            frames[v] = model(left_t, right_t).disparity
+        torch.cuda.synchronize()
+        if not torch.equal(frames["old"], frames["new"]):
+            raise AssertionError(f"{name}: old and new frames differ")
+
+        def frame(lib, model=model):
+            launch_from(lib)
+            return model(left_t, right_t)
+
+        ms = {"old": [], "new": []}
+        for _ in range(5):
+            t_new, t_old = chip_smoke.cuda_ms_turns(lambda: frame(None), lambda: frame(old))
+            ms["new"].append(t_new)
+            ms["old"].append(t_old)
+        result[f"{name} {H}x{W} ms/frame, median of 5 medians in turns"] = {
+            v: float(np.median(t)) for v, t in ms.items()}
+        result[f"{name} ms/frame range"] = {v: [min(t), max(t)] for v, t in ms.items()}
+        print(f"{name}: {result[f'{name} {H}x{W} ms/frame, median of 5 medians in turns']}, "
+              f"range {result[f'{name} ms/frame range']}")
+    launch_from(None)
     line = json.dumps(result, ensure_ascii=False)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -278,6 +278,22 @@ struct WtaState {
   }
 };
 
+// torch.minimum / torch.maximum on the card: NaN where either operand is
+// NaN, else min.f32 / max.f32, the instructions fminf / fmaxf (torch's ::min
+// and ::max) compile to, so the sign of a zero comes out as torch gives it.
+// One instruction each (sm_80+). The NaN is the canonical one where torch
+// returns the NaN operand's bits: only NaN positions are compared.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // f32 <-> volume element type (bf16 rounds to nearest even, as torch and
 // jnp's astype do)
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -4,11 +4,19 @@ K5 (scanline occlusion fill), each with its plain version (twin of
 
 Each ``*_fused`` wrapper launches its CUDA kernel for CUDA tensors and runs
 the ``*_plain`` version for CPU tensors. All three are selections or
-comparisons, not arithmetic that could be reordered, so kernel, plain
-version and the reference agree bit for bit: the median applies the
-reference's 19-comparator network with edge replicate (equal to
-``dense.median3``); the LR check and the fill are ``dense.lr_consistency``
-and ``dense.fill_invalid``.
+comparisons, not arithmetic that could be reordered, so each kernel
+equals its plain version on the same device bit for bit: the median
+applies the reference's 19-comparator network with edge replicate, the LR
+check and the fill are ``dense.lr_consistency`` and ``dense.fill_invalid``.
+
+NaN follows ``torch.minimum``/``torch.maximum``: a NaN operand wins every
+exchange of the median and the fill's minimum (where the kernel's NaN may
+carry other bits, so NaN is compared by position). The sign of a zero is
+the device's: the kernels use the instructions torch's CUDA ``minimum``/
+``maximum`` use, and the reference's ``jnp.minimum`` (−0 below +0) may give
+the other sign where torch does not order the zeros. Values are the
+reference's everywhere; the median equals ``dense.median3`` where no NaN is
+present (a sort puts NaN last).
 """
 
 from __future__ import annotations
