@@ -124,7 +124,25 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    both scenes: ``box`` plans multi-window tiles at depth edges), K1 and
    K8 with the fill of their right-view buffer, K7 per direction, K11
    against ``grid_sample``; and K1 alone at the ``flagship()`` shape
-   against its bound there.
+   against its bound there;
+6. the reference's own flows through the port's entry points
+   (``reference_flows``): a. parity through ``DepthFrame`` on a 400×600
+   RGB pair (the shape of the reference's bundled images; a 4×4-block
+   random field shifted 6 columns, ±3 of noise), then ``invert_depth``,
+   ``select_foreground``, ``apply_mask``: card equal to CPU bit for bit,
+   depth not all zero, the phase times (subdivision, phase A, phase B,
+   normalise) there and at 1080p on ``make_pair``; b. ``StereoModel(
+   backend="hierarchical")`` (SAD, D=128, ``levels=4``) at 1080p: no
+   kernel launched, median disparity 24 ± 0.5, ms/frame, the frame's peak
+   memory, the share within 1 px of ``hierarchical-pallas``; card against
+   CPU at 270×480 ``levels=3`` under the close rule; c. the CLI in-process
+   (``cli.main``) on PNGs: ``stereo`` in production (launch counts equal
+   to 4b's, PNG equal to the model call's u8 depth), ``video`` on a
+   9-frame 1080p clip drifting 24…28…24 px (census, LR, chunks of 4: every
+   frame equal to ``model.video(4)``, frames/s end to end and of
+   ``model.video`` alone), ``depth`` and ``foreground`` (equal to a.);
+   d. ``image_pair_loader`` onto the card over the clip's PNGs (order,
+   device, values).
 
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
@@ -710,6 +728,243 @@ def check_edges(dev, err):
             n += 1
     print(f"  K11: {n} cases bit-equal (C 1-4, W % 4 = 1, 2, 3, 0, offset views, "
           f"NaN/inf/far entries)")
+
+
+# the reference's flows (phase 6): the parity pair has the shape of the
+# reference's bundled main.jpg/additional.jpg; the video clip drifts 1 px a
+# frame up and back
+PRECISION = (36, 36, 36)
+PARITY_SHAPE = (400, 600)
+PARITY_REPS = 3
+FLOW_SHIFTS = [24, 25, 26, 27, 28, 27, 26, 25, 24]
+
+
+def parity_pair(h, w, seed=0):
+    """tests/test_match_parity.py's pair at (h, w): a 4×4-block random field
+    (u8 RGB), the additional view shifted by 6 columns with ±3 of per-pixel
+    noise, so that phase B has rings to sweep."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, size=(-(-h // 4), -(-w // 4), 3)).astype(np.float32)
+    main = np.kron(base, np.ones((4, 4, 1), np.float32))[:h, :w].astype(np.uint8)
+    add = np.roll(main, 6, axis=1).astype(np.int16) + rng.integers(-3, 4, main.shape)
+    return main, np.clip(add, 0, 255).astype(np.uint8)
+
+
+def gray_rgb(x):
+    """A float gray view as u8 RGB (rounded, clipped)."""
+    g = np.clip(np.round(x), 0, 255).astype(np.uint8)
+    return np.repeat(g[..., None], 3, axis=-1)
+
+
+def parity_times(main, add, dev, reps=PARITY_REPS):
+    """The parity pipeline on the card: the median over ``reps`` runs (after
+    a warm-up) of each phase's ms and of the whole call's (host clock,
+    synchronised), with the rings phase B swept, the distinct leaves and the
+    share of pixels matched."""
+    from stepth_tpu_torch.match import parity
+
+    m, a = torch.as_tensor(main, device=dev), torch.as_tensor(add, device=dev)
+    parity.depth_from_additional(m, a, PRECISION)
+    runs = []
+    for _ in range(reps):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parity.depth_from_additional(m, a, PRECISION, stats=stats)
+        torch.cuda.synchronize()
+        stats["total_s"] = time.perf_counter() - t0
+        runs.append(stats)
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
+
+def print_parity_times(shape, t, card):
+    print(f"  parity {shape[0]}x{shape[1]} on the card (median of {PARITY_REPS}), {card}: "
+          f"total {t['total_s'] * 1e3:.4f} ms = subdivide {t['subdivide_s'] * 1e3:.4f} + "
+          f"phase A {t['phase_a_s'] * 1e3:.4f} + phase B {t['phase_b_s'] * 1e3:.4f} + "
+          f"normalise {t['normalize_s'] * 1e3:.4f} ms; phase B swept {int(t['rings'])} "
+          f"rings; {int(t['leaves'])} distinct leaves; {t['matched_share']:.6f} of pixels "
+          f"matched")
+
+
+def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
+    """Phase 6, the reference's own flows through the port's entry points:
+    a. parity at the reference's own size through ``DepthFrame`` (depth,
+       then invert, foreground, apply_mask), the card bit-equal to the CPU,
+       and its phase times there and at 1080p;
+    b. the ``hierarchical`` backend at 1080p (median disparity, ms/frame,
+       peak memory, agreement with ``hierarchical-pallas``) and the card
+       against the CPU at 270×480;
+    c. the CLI in-process: ``stereo`` (production, launch counts equal to
+       ``prod_launches``, PNG equal to the model call), ``video`` on a
+       9-frame 1080p clip (every disparity equal to ``model.video(4)``),
+       ``depth`` and ``foreground`` (equal to a.);
+    d. ``image_pair_loader`` onto the card over the clip's PNGs."""
+    from stepth_tpu_torch import DepthFrame, cli
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig
+    from stepth_tpu_torch.core import io
+    from stepth_tpu_torch.core.loader import image_pair_loader
+    from stepth_tpu_torch.models.stereo import StereoModel
+
+    t_phase = time.perf_counter()
+    H, W = pair[0].shape
+    left, right = (torch.as_tensor(a, device=dev) for a in pair)
+
+    # 6a. parity through DepthFrame: the card against the CPU
+    print(f"== 6a. parity through DepthFrame, {PARITY_SHAPE[0]}x{PARITY_SHAPE[1]} RGB, "
+          f"precision {PRECISION}, card: {card}")
+    main, add = parity_pair(*PARITY_SHAPE, seed=SEED)
+    flows = []  # the card's, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        f = DepthFrame.from_array(main, device=d).load_depth_from_additional(add, PRECISION)
+        fg = f.invert_depth().select_foreground().apply_mask()
+        if f.depth.device.type != d.type or fg.image.device.type != d.type:
+            raise AssertionError(f"parity frames left {d}")
+        flows.append([t.cpu() for t in (f.depth, fg.mask, fg.image)])
+    for name, got, want in zip(("depth", "foreground mask", "masked image"), *flows):
+        if not torch.equal(want, got):
+            raise AssertionError(f"parity {name}: card != CPU at {int((want != got).sum())}")
+    depth, fg_mask, fg_image = flows[0]
+    if not bool(depth.any()):
+        raise AssertionError("parity depth is all zero")
+    print(f"  depth, foreground mask and masked image: card == CPU bit for bit; depth max "
+          f"{int(depth.max())}, {float((depth > 0).float().mean()):.4f} of pixels nonzero, "
+          f"foreground share {float((fg_mask == 255).float().mean()):.4f}")
+    print_parity_times(PARITY_SHAPE, parity_times(main, add, dev), card)
+    main_hd, add_hd = gray_rgb(pair[0]), gray_rgb(pair[1])
+    print_parity_times((H, W), parity_times(main_hd, add_hd, dev), card)
+
+    # 6b. the hierarchical backend (plain torch: no kernel)
+    print(f"== 6b. StereoModel(backend='hierarchical'), sad, D=128, levels=4, {H}x{W}")
+    sad = MatchConfig(num_disparities=128, window=9, cost="sad")
+    hier = StereoModel(backend="hierarchical", match=sad,
+                       pyramid=PyramidConfig(levels=4, coarsest_disparities=16))
+    res, launches = drive(lambda: hier(left, right))
+    if any(launches.values()):
+        raise AssertionError(f"hierarchical launched kernels: {launches}")
+    d = res.disparity
+    if d.shape != (H, W) or not bool(torch.isfinite(d).all()):
+        raise AssertionError(f"hierarchical: bad disparity {tuple(d.shape)}")
+    med = float(d[50:-50, 100:-100].median())
+    print(f"  median disparity {med:.4f} (want 24 +- 0.5); no kernel launched")
+    if not abs(med - 24.0) <= 0.5:
+        raise AssertionError(f"hierarchical: median disparity {med}")
+    near = float(((d - sad_model(left, right).disparity).abs() <= 1.0).float().mean())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hier(left, right)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(lambda: hier(left, right), reps=3)
+    print(f"  {H}x{W}: {ms:.4f} ms/frame (median of 3), peak memory of the frame "
+          f"{peak / 2**30:.4f} GiB over {base / 2**30:.4f} GiB held; {near:.4f} of pixels "
+          f"within 1 px of hierarchical-pallas, card: {card}")
+    small = StereoModel(backend="hierarchical", match=sad,
+                        pyramid=PyramidConfig(levels=3, coarsest_disparities=16))
+    l3, r3 = make_pair(270, 480, seed=SEED)
+    want = small(l3, r3, device="cpu")
+    got = small(torch.as_tensor(l3, device=dev), torch.as_tensor(r3, device=dev))
+    check_equal("hierarchical 270x480 levels=3, card vs CPU", want.disparity, want.valid,
+                got.disparity.cpu(), got.valid.cpu(), exact=False)
+
+    # 6c. the CLI, in-process
+    census = MatchConfig(num_disparities=128, window=9, cost="census")
+    on_card = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        print(f"== 6c. the CLI: stereo --backend hierarchical-pallas --cost census --lr-check "
+              f"--disparities 128, {H}x{W}")
+        lp, rp, out = (os.path.join(tmp, n) for n in ("l.png", "r.png", "stereo.png"))
+        io.save(lp, main_hd)
+        io.save(rp, add_hd)
+        args = ["stereo", lp, rp, out, "--backend", "hierarchical-pallas", "--cost", "census",
+                "--lr-check", "--disparities", "128"]
+        rc, launches = drive(lambda: cli.main(on_card + args))
+        print(f"  launches: {launches}")
+        if rc != 0 or launches != prod_launches:
+            raise AssertionError(f"cli stereo: rc {rc}, launches {launches} != {prod_launches}")
+        want = StereoModel(backend="hierarchical-pallas", match=census, lr_check=True).depth_u8(
+            io.open_rgb(lp), io.open_rgb(rp), dev)
+        if not np.array_equal(io.open_luma(out), want.cpu().numpy()):
+            raise AssertionError("cli stereo: PNG != disparity_to_depth_u8 of the model call")
+        print("  PNG equal to the model call's u8 depth")
+
+        print(f"== 6c. the CLI: video, {len(FLOW_SHIFTS)} frames {H}x{W}, census, --lr-check, "
+              f"--chunk 4 --keyframe-interval 4 --format npz")
+        cl, crs = make_clip(H, W, FLOW_SHIFTS, seed=SEED)
+        ldir, rdir, odir = (os.path.join(tmp, n) for n in ("left", "right", "depth"))
+        os.makedirs(ldir)
+        os.makedirs(rdir)
+        lefts = [os.path.join(ldir, f"{i:03d}.png") for i in range(len(crs))]
+        rights = [os.path.join(rdir, f"{i:03d}.png") for i in range(len(crs))]
+        for lpath, rpath, cr in zip(lefts, rights, crs):
+            io.save(lpath, gray_rgb(cl))
+            io.save(rpath, gray_rgb(cr))
+        args = on_card + ["video", ldir, rdir, odir, "--cost", "census", "--lr-check",
+                          "--chunk", "4", "--keyframe-interval", "4", "--format", "npz"]
+        rc, launches = drive(lambda: cli.main(args))
+        # keyframes 0, 4 and 8 run the pyramid (K1, K2 at 3 levels), the
+        # other 6 frames the seeded level 0 (K2); every frame its right view
+        # and epilogue
+        n = len(FLOW_SHIFTS)
+        want_launches = {k: 0 for k in launches}
+        want_launches.update({"K1": 3, "K2": 3 * 3 + n - 3, "K2 emit": n, "K3": n, "K4": n,
+                              "K5": n})
+        print(f"  launches for {n} frames: {launches}")
+        if rc != 0 or launches != want_launches:
+            raise AssertionError(f"cli video: rc {rc}, launches {launches} != {want_launches}")
+        files = sorted(os.listdir(odir))
+        if len(files) != len(crs):
+            raise AssertionError(f"cli video wrote {len(files)} files")
+        ls = torch.as_tensor(np.stack([io.open_rgb(p) for p in lefts]), device=dev).float()
+        rs = torch.as_tensor(np.stack([io.open_rgb(p) for p in rights]), device=dev).float()
+        vmodel = StereoModel(backend="hierarchical-pallas", match=census,
+                             pyramid=PyramidConfig(levels=4, coarsest_disparities=16),
+                             lr_check=True)
+        vres = vmodel.video(4)(ls, rs)
+        meds = []
+        for t, name in enumerate(files):
+            data = np.load(os.path.join(odir, name))
+            if not (np.array_equal(data["disparity"], vres.disparity[t].cpu().numpy())
+                    and np.array_equal(data["valid"], vres.valid[t].cpu().numpy())):
+                raise AssertionError(f"cli video frame {t} != model.video(4)")
+            meds.append(float(np.median(data["disparity"][50:-50, 100:-100])))
+            if not abs(meds[-1] - FLOW_SHIFTS[t]) <= 0.5:  # shifts 24 ... 28 ... 24
+                raise AssertionError(f"cli video frame {t}: median {meds[-1]}")
+        print(f"  every frame equal to model.video(4); medians {meds}")
+        t0 = time.perf_counter()
+        cli.main(args)
+        torch.cuda.synchronize()
+        e2e = time.perf_counter() - t0
+        vms = cuda_ms(lambda: vmodel.video(4)(ls, rs), reps=3)
+        print(f"  frames/s: CLI end to end (decode, copies and npz writes included) "
+              f"{len(crs) / e2e:.4f}, model.video(4) alone {len(crs) / vms * 1e3:.4f} "
+              f"({vms / len(crs):.4f} ms/frame), card: {card}")
+
+        print(f"== 6c. the CLI: depth and foreground on 6a's pair")
+        mp, ap, dout, fout = (os.path.join(tmp, n) for n in ("m.png", "a.png", "d.png", "f.png"))
+        io.save(mp, main)
+        io.save(ap, add)
+        if cli.main(on_card + ["depth", mp, ap, dout]) != 0 or \
+                cli.main(on_card + ["foreground", mp, ap, fout]) != 0:
+            raise AssertionError("cli depth/foreground failed")
+        if not np.array_equal(io.open_luma(dout), depth.numpy()):
+            raise AssertionError("cli depth != 6a's depth")
+        if not np.array_equal(io.open_rgba(fout), fg_image.numpy()):
+            raise AssertionError("cli foreground != 6a's masked image")
+        print("  depth PNG equal to 6a's depth; foreground PNG equal to 6a's masked image")
+
+        # 6d. the loader onto the card
+        print(f"== 6d. image_pair_loader(device={str(dev)!r}) over the clip's PNGs")
+        batches = list(image_pair_loader(list(zip(lefts, rights)), device=dev))
+        if len(batches) != len(lefts):
+            raise AssertionError(f"loader gave {len(batches)} pairs")
+        for b, lpath, rpath in zip(batches, lefts, rights):
+            for key, path in (("left", lpath), ("right", rpath)):
+                if not (b[key].device.type == dev.type and torch.equal(b[key].cpu(),
+                                                       torch.as_tensor(io.open_rgb(path)))):
+                    raise AssertionError(f"loader {key} {path}: not on the card or not equal")
+        print(f"  {len(batches)} pairs in order, on the card, equal to io.open_rgb")
+    print(f"== phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1789,6 +2044,10 @@ def main() -> int:
         print(f"  {name}, timed in turns: {ms[0]:.4f} / {ms[1]:.4f} ms/frame")
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+
+    # 6. the reference's flows: parity, DepthFrame/MaskFrame, the hierarchical
+    # backend, the CLI and the loader
+    reference_flows(dev, smi[0], drive, prod, prod_launches, model, pairs["make_pair"])
 
     # bounds at the shapes each kernel was timed at: K1-K5 on the production
     # path (K1 and K2 census, planes in the bytes; K2 counts the candidates

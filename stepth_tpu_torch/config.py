@@ -1,6 +1,7 @@
 """Frozen configuration dataclasses, field for field those of the reference.
 
-``MatchConfig`` and ``PyramidConfig`` copy ``stepth_tpu/config.py``;
+``SubdivisionConfig``, ``RingSearchConfig``, ``MatchConfig``,
+``PyramidConfig`` and ``MeshConfig`` copy ``stepth_tpu/config.py``;
 ``SGMConfig`` copies ``stepth_tpu/match/sgm.py``. The matcher has no learned
 weights, so these configs are the whole state a run carries:
 :func:`from_dict` rebuilds one from ``dataclasses.asdict`` of a reference
@@ -10,8 +11,31 @@ config, so one configuration drives both packages.
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SubdivisionConfig:
+    """Subdivision bounds of the parity path: ``max_splits`` is
+    ceil(log2(H·W)) at call time when None."""
+
+    min_splits: int = 16
+    max_splits: Optional[int] = None
+
+    def resolved_max(self, height: int, width: int) -> int:
+        if self.max_splits is not None:
+            return self.max_splits
+        return int(math.ceil(math.log2(float(height * width))))
+
+
+@dataclasses.dataclass(frozen=True)
+class RingSearchConfig:
+    """Expanding ring-search bound of the parity path: rings 0 …
+    ``max_radius`` − 1."""
+
+    max_radius: int = 255
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +86,16 @@ class PyramidConfig:
             if self.refine_windows_final is None
             else self.refine_windows_final
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh shape for row-tile sharding: ``data`` (batch) × ``tile``
+    (image-row tiles)."""
+
+    data: int = 1
+    tile: int = 1
+    axis_names: Tuple[str, str] = ("data", "tile")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,16 +2,19 @@
 ``stepth_tpu/models/stereo.py:38-198``).
 
 The fields are the reference's, so one configuration drives both packages,
-and the backends keep their names: ``"dense"`` is the plain-torch cost
+and the eight backends keep their names: ``"dense"`` is the plain-torch cost
 volume matcher, ``"pallas"`` the exhaustive matcher on the port's kernels
-(K1, K4, K5, K3), ``"hierarchical-pallas"`` the coarse-to-fine pyramid on
-them (K1, K2, K3, and K4, K5 with ``lr_check``), ``"sgm"`` the plain-torch
-semi-global matcher, ``"sgm-pallas"`` the same on kernels K6–K9 (with K4,
-K5, K3), and ``"hierarchical-sgm"`` the pyramid with the SGM matcher at the
-coarsest level. :meth:`StereoModel.batched` and :meth:`StereoModel.video`
-are Python loops over frames; :meth:`StereoModel.sharded` runs the six
-backends row-tile-sharded over a device mesh (``parallel/``). Every other
-backend names the ROADMAP item that ports it.
+(K1, K4, K5, K3), ``"hierarchical"`` the coarse-to-fine pyramid in plain
+torch (``match.pyramid``), ``"hierarchical-pallas"`` the pyramid on the
+kernels (K1, K2, K3, and K4, K5 with ``lr_check``), ``"hierarchical-sgm"``
+the same with the SGM matcher at the coarsest level, ``"sgm"`` the
+plain-torch semi-global matcher, ``"sgm-pallas"`` the same on kernels K6–K9
+(with K4, K5, K3), and ``"parity"`` the reference's own depth-from-additional
+flow (``match.parity``, u8 depth as the disparity).
+:meth:`StereoModel.batched` and :meth:`StereoModel.video` are Python loops
+over frames; :meth:`StereoModel.sharded` runs six backends row-tile-sharded
+over a device mesh (``parallel/``); as in the reference, ``hierarchical``
+and ``parity`` have no sharded path.
 """
 
 from __future__ import annotations
@@ -28,12 +31,6 @@ from stepth_tpu_torch.config import (
     SGMConfig,
 )
 from stepth_tpu_torch.match import dense
-
-_NOT_PORTED = {
-    "hierarchical": "ROADMAP Queue 1 item 8 (XLA-only backends)",
-    "parity": "ROADMAP Queue 1 item 9 (parity)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class StereoModel:
@@ -75,18 +72,31 @@ class StereoModel:
 
             return fused_sgm.match_pair_sgm_fused(left, right, self.match, self.sgm,
                                                   device=device)
-        if self.backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet: {_NOT_PORTED[self.backend]}"
-            )
+        if self.backend == "hierarchical":
+            from stepth_tpu_torch.match import pyramid
+
+            return pyramid.match_hierarchical(left, right, self.match, self.pyramid,
+                                              device=device)
+        if self.backend == "parity":
+            from stepth_tpu_torch.match import parity
+
+            depth = parity.depth_from_additional(
+                dense.to_tensor(left, device).to(torch.uint8),
+                dense.to_tensor(right, device).to(torch.uint8), self.precision)
+            d = depth.to(torch.float32)
+            return dense.MatchResult(disparity=d, valid=torch.ones_like(d, dtype=torch.bool),
+                                     cost=torch.zeros_like(d))
         raise ValueError(f"unknown backend {self.backend!r}")
 
     def _coarse(self) -> str:
         return "sgm" if self.backend == "hierarchical-sgm" else "wta"
 
     def depth_u8(self, left, right, device=None) -> torch.Tensor:
-        """Disparity scaled to the reference's u8 depth convention."""
+        """Disparity scaled to the reference's u8 depth convention (the
+        ``parity`` backend's disparity is that depth already)."""
         res = self(left, right, device)
+        if self.backend == "parity":
+            return res.disparity.to(torch.uint8)
         return dense.disparity_to_depth_u8(res.disparity, self.match.num_disparities)
 
     def batched(self):

@@ -9,14 +9,12 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
+from stepth_tpu_torch.core.frame import MASK_FALSE, MASK_TRUE
 from stepth_tpu_torch.match.dense import to_tensor
 
-MASK_TRUE = np.uint8(255)
-MASK_FALSE = np.uint8(0)
-_TRUE, _FALSE = int(MASK_TRUE), int(MASK_FALSE)
+_TRUE, _FALSE = MASK_TRUE, MASK_FALSE
 
 
 def _u8(x) -> torch.Tensor:

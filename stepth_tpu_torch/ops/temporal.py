@@ -1,16 +1,15 @@
 """Temporal ops over depth and mask video [T, H, W] (twin of
 ``stepth_tpu/ops/temporal.py``). Time is a leading axis; the mask
-constants are the port's ``ops.mask`` ones (the reference takes them from
-``core/frame.py``, which is not ported yet)."""
+constants come from ``core/frame.py``, as in the reference."""
 
 from __future__ import annotations
 
 import torch
 
 from stepth_tpu_torch.match.dense import to_tensor
-from stepth_tpu_torch.ops.mask import MASK_TRUE
+from stepth_tpu_torch.core.frame import MASK_TRUE
 
-_TRUE = int(MASK_TRUE)
+_TRUE = MASK_TRUE
 
 
 def _pad_time(x: torch.Tensor, r: int) -> torch.Tensor:

@@ -14,6 +14,9 @@ from stepth_tpu_torch.models import stereo
 from tests.torch_port import one_torch_thread  # noqa: F401 (autouse fixture)
 
 PAIRS = [
+    (ref_config.SubdivisionConfig, config.SubdivisionConfig),
+    (ref_config.RingSearchConfig, config.RingSearchConfig),
+    (ref_config.MeshConfig, config.MeshConfig),
     (ref_config.MatchConfig, config.MatchConfig),
     (ref_config.PyramidConfig, config.PyramidConfig),
     (ref_sgm.SGMConfig, config.SGMConfig),
@@ -33,6 +36,9 @@ def test_fields_and_defaults_equal(ref_cls, cls):
 @pytest.mark.parametrize(
     "ref",
     [
+        ref_config.SubdivisionConfig(min_splits=10, max_splits=18),
+        ref_config.RingSearchConfig(max_radius=40),
+        ref_config.MeshConfig(data=2, tile=4, axis_names=("batch", "rows")),
         ref_config.MatchConfig(num_disparities=128, cost="ssd", uniqueness=0.1,
                                lr_threshold=None),
         ref_config.PyramidConfig(levels=3, coarsest_disparities=8, refine_radius=4,
@@ -52,6 +58,10 @@ def test_from_dict_round_trips(ref):
     got = config.from_dict(cls, dataclasses.asdict(ref))
     assert isinstance(got, cls)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    if isinstance(ref, ref_config.SubdivisionConfig):
+        assert got.resolved_max(400, 600) == ref.resolved_max(400, 600)
+        assert config.SubdivisionConfig().resolved_max(400, 600) == \
+            ref_config.SubdivisionConfig().resolved_max(400, 600)
     if isinstance(ref, ref_config.PyramidConfig):
         assert (got.final_radius, got.final_windows) == (ref.final_radius, ref.final_windows)
     if isinstance(ref, ref_stereo.StereoModel):

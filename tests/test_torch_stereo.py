@@ -153,9 +153,16 @@ def test_batched_matches_reference(rng):
 
 @pytest.mark.parametrize("backend", ["hierarchical", "parity"])
 def test_unported_backends_name_their_roadmap_item(backend):
-    g = torch.zeros((32, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StereoModel(backend=backend)(g, g)
+    """The two backends ported last run on the tensors' device, and arrays
+    with no device named go to the card: without one they raise."""
+    g = torch.zeros((32, 128, 3), dtype=torch.uint8)
+    res = StereoModel(backend=backend)(g, g)
+    assert res.disparity.shape == (32, 128) and res.disparity.device == g.device
+    assert bool(torch.isfinite(res.disparity).all())
+    if backend == "parity":  # all pixels match at distance 0
+        assert bool(res.valid.all()) and not bool(res.disparity.any())
+    with pytest.raises(ValueError, match="device"):
+        StereoModel(backend=backend)(np_(g), np_(g))
 
 
 def test_unknown_backend_and_lr_check_raise():
