@@ -144,9 +144,34 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    d. ``image_pair_loader`` onto the card over the clip's PNGs (order,
    device, values).
 
+7. the mapping path and the two-view flow (``mapping_flows``): a.
+   ``tools/mapping_bench.py``'s defaults at 1088×1920 (``mapping_run``):
+   8 keyframes of a strafing rig over the ``curved`` world, each pair
+   rendered anew from its ground-truth depth (the port's
+   ``warp_depth_to_ref``); the production matcher's ``video(4)`` (census,
+   LR, D=128, ``levels=4``), metric depth and ``fuse_depths``,
+   ``posegraph.optimize`` on noisy odometry with a loop closure, and
+   ``solve_resumable`` over 4,096 points × 8 cameras (10 LM iterations,
+   ``cg_iters=10``, a checkpoint every 5): the clip's K1–K5 launches, each
+   stage's time (``StageTimes``, synchronised) and peak memory, the end-to-
+   end wall time, the device's busy share over one run from a
+   ``device_trace`` Chrome trace; checked: the fused median |dZ|/Z beats
+   the single view's, the pose-graph residual < 1e-6, the BA cost falls
+   and ends below 1.5 × 2σ² (σ = 0.3 px), the solve interrupted at
+   iteration 5 and rerun, a straight solve and a second straight solve
+   equal bit for bit, the card's BA within 5e-3 (cost rtol 0.3) of CPU
+   tensors and its fusion within 1e-5 relative on ≥ 99.9% of pixels;
+   b. ``examples/two_view_reconstruction.py``'s rig at 160×224: features,
+   ``pose_from_correspondences``, ``rectify_pair(backend="pallas")`` (K11
+   twice) and ``hierarchical-pallas`` SAD D=64 (K1, K2 twice, K3) for
+   RANSAC seeds 0-9, the example's checks (rotation error < 3e-2 and t
+   direction < 9° on every draw, the dense median depth within 0.4 of the
+   ground truth on at least 7 draws, the JAX package's count on its own
+   draws) and the corner set equal to the CPU's.
+
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
-entry's ``path``); the last line is ``{"ok": true, "device": {...}}``.
+entry's ``path``, and ``mapping_launches`` from 7a's clip); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result. Imports nothing of
 JAX.
 """
@@ -965,6 +990,628 @@ def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
                     raise AssertionError(f"loader {key} {path}: not on the card or not equal")
         print(f"  {len(batches)} pairs in order, on the card, equal to io.open_rgb")
     print(f"== phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# the mapping path (phase 7a): tools/mapping_bench.py's defaults, config 5
+MAP_SHAPE = (1088, 1920)
+MAP_D, MAP_LEVELS, MAP_COARSEST = 128, 4, 16
+MAP_KEYFRAMES = 8
+MAP_F, MAP_B, MAP_STRAFE = 1000.0, 0.05, 0.02  # focal px, stereo baseline m, m a keyframe
+MAP_BA_POINTS, MAP_LM, MAP_CG, MAP_EVERY = 4096, 10, 10, 5
+MAP_SIGMA = 0.3  # px of noise on the BA observations
+MAP_SEED = 7
+# the two-view flow (phase 7b): examples/two_view_reconstruction.py's scene.
+# Its dense-depth check holds or fails with the RANSAC draw (the pose's
+# rectification error), and the port draws other samples than the JAX
+# package (a torch generator, not threefry). So the check is made twice:
+# on the example's own run, with the pose the JAX package's RANSAC draws
+# there (seed 0; tests/test_torch_epipolar.py pins these numbers to it),
+# through the port's rectification and dense match; and over the port's
+# draws 0-9, on at least as many as the JAX package passes over its own
+# draws 0-9 (7, measured by the same test).
+TWO_VIEW_SHAPE = (160, 224)
+TWO_VIEW_SEEDS = 10
+TWO_VIEW_MIN_DEPTH_PASSES = 7
+TWO_VIEW_EXAMPLE_POSE = (  # R, t_unit
+    [[0.99551922082901, -0.007426485884934664, 0.09426703304052353],
+     [0.005092128645628691, 0.9996749758720398, 0.02497962862253189],
+     [-0.09442190080881119, -0.024387679994106293, 0.9952334761619568]],
+    [-0.9924408793449402, 0.11182159185409546, 0.05056792125105858])
+
+
+def fill_rows(depth):
+    """Row-wise nearest fill of splat holes (0s), as mapping_bench's."""
+    d = np.array(depth)
+    for r in range(d.shape[0]):
+        row = d[r]
+        bad = row <= 0
+        if bad.all():
+            continue
+        idx = np.where(~bad, np.arange(len(row)), -1)
+        np.maximum.accumulate(idx, out=idx)
+        idx[idx < 0] = np.where(~bad)[0][0]
+        d[r] = row[idx]
+    return d
+
+
+def mapping_world(h, w, keyframes, dmax, dev, f=MAP_F):
+    """mapping_bench's world: the ``curved`` scene's disparity in keyframe 0
+    as metric depth (focal ``f`` px, baseline ``MAP_B``); keyframe k strafes
+    ``MAP_STRAFE`` m a step in +X, its
+    ground-truth depth is keyframe 0's depth splatted into it by the port's
+    ``warp_depth_to_ref`` on ``dev`` (holes filled row-wise), and its pair
+    is rendered anew from that depth's disparity with a fresh texture
+    (``scenes._render``). Returns numpy arrays: ``Z0``, ``poses`` [K, 6],
+    ``gt`` [K, H, W], ``lefts``, ``rights`` [K, H, W] and ``intr``."""
+    from stepth_tpu_torch.fusion import depthfusion
+    from stepth_tpu_torch.utils import scenes
+
+    fb = f * MAP_B
+    intr = np.array([f, f, w / 2.0, h / 2.0], np.float32)
+    base = scenes.make_scene("curved", h, w, dmax, seed=1)
+    z0 = (fb / base.disparity.astype(np.float64)).astype(np.float32)
+    poses = np.stack([np.array([0, 0, 0, MAP_STRAFE * k, 0, 0], np.float32)
+                      for k in range(keyframes)])
+    gt = [z0]
+    for k in range(1, keyframes):
+        wk = depthfusion.warp_depth_to_ref(z0, poses[0], poses[k], intr, device=dev)
+        gt.append(fill_rows(wk.cpu().numpy()))
+    gt = np.stack(gt)
+    lefts, rights = [], []
+    for k in range(keyframes):
+        disp_k = np.clip(fb / np.maximum(gt[k], 1e-3), 0.0, dmax - 1.0).astype(np.float32)
+        tex = scenes._tex(np.random.default_rng(100 + k), h, w)
+        sc = scenes._render([scenes._Layer(disp_k, None, tex)], h, w, 8, f"kf{k}")
+        lefts.append(sc.left)
+        rights.append(sc.right)
+    return dict(z0=z0, poses=poses, gt=gt, lefts=np.stack(lefts), rights=np.stack(rights),
+                intr=intr)
+
+
+def mapping_model(dmax, levels, coarsest):
+    """The production matcher of mapping_bench: census + LR."""
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig
+    from stepth_tpu_torch.models.stereo import StereoModel
+
+    return StereoModel(backend="hierarchical-pallas",
+                       match=MatchConfig(num_disparities=dmax, window=9, cost="census"),
+                       pyramid=PyramidConfig(levels=levels, coarsest_disparities=coarsest),
+                       lr_check=True)
+
+
+def mapping_run(world, model, dev, ckpt, ba_points=MAP_BA_POINTS, lm=MAP_LM, cg=MAP_CG,
+                every=MAP_EVERY, stages=None, peaks=None):
+    """One run of the mapping path on ``dev`` through the port's entry
+    points, as mapping_bench runs it: the matcher (``video(4)``) over the
+    clip, metric depth and ``fuse_depths`` into keyframe 0, ``posegraph.
+    optimize`` over noisy odometry plus a loop closure, and
+    ``solve_resumable`` over ``ba_points`` points seen by every keyframe
+    (checkpoint at ``ckpt``, removed first). ``stages`` (a ``StageTimes``)
+    times each stage, synchronised; ``peaks`` gets, on a card, each stage's
+    peak memory above what was allocated when it began (``max_memory_
+    allocated`` after ``reset_peak_memory_stats``, less ``memory_
+    allocated`` then). Returns the stages' outputs."""
+    from stepth_tpu_torch.fusion import ba, depthfusion, geometry as geo, posegraph, resumable
+    from stepth_tpu_torch.utils.tracing import StageTimes
+
+    stages = stages if stages is not None else StageTimes()
+    rng = np.random.default_rng(MAP_SEED)
+    poses_np, intr_np = world["poses"], world["intr"]
+    keyframes = poses_np.shape[0]
+    h, w = world["z0"].shape
+    out = {}
+
+    held = {}
+
+    def stage(name):
+        if peaks is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            held[name] = torch.cuda.memory_allocated(dev)
+        return stages.stage(name, block_on=out)
+
+    def peak(name):
+        if peaks is not None and dev.type == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - held[name]
+
+    with stage("match"):
+        clip_l = torch.as_tensor(world["lefts"], device=dev)
+        clip_r = torch.as_tensor(world["rights"], device=dev)
+        out["match"] = model.video(keyframe_interval=4)(clip_l, clip_r)
+    peak("match")
+    with stage("fuse"):
+        res = out["match"]
+        fb = torch.tensor(float(intr_np[0]) * MAP_B, dtype=torch.float32, device=dev)
+        out["depths"] = torch.where(res.valid, fb / torch.clamp(res.disparity, min=1e-3), 0.0)
+        poses = torch.as_tensor(poses_np, device=dev)
+        intr = torch.as_tensor(intr_np, device=dev)
+        out["fused"] = depthfusion.fuse_depths(out["depths"], poses, poses[0], intr)
+    peak("fuse")
+    with stage("pose graph"):
+        noisy = poses + torch.as_tensor(rng.normal(0, 0.01, (keyframes, 6)).astype(np.float32),
+                                        device=dev)
+        noisy[0] = poses[0]
+        ei = torch.tensor(list(range(keyframes - 1)) + [0], dtype=torch.int32, device=dev)
+        ej = torch.tensor(list(range(1, keyframes)) + [keyframes - 1], dtype=torch.int32,
+                          device=dev)
+        out["graph"] = posegraph.PoseGraph(noisy, ei, ej, geo.relative(poses[ei], poses[ej]),
+                                           torch.ones(keyframes, dtype=torch.float32,
+                                                      device=dev))
+        out["opt"] = posegraph.optimize(out["graph"], iters=10)
+    peak("pose graph")
+    with stage("bundle adjustment"):
+        ys = rng.integers(8, h - 8, ba_points)
+        xs = rng.integers(8, w - 8, ba_points)
+        z = torch.as_tensor(world["z0"][ys, xs], device=dev)
+        uv0 = torch.as_tensor(np.stack([xs, ys], -1).astype(np.float32), device=dev)
+        pts = geo.transform(geo.inverse(poses[0])[None], geo.unproject(uv0, z, intr))
+        ci = torch.as_tensor(np.repeat(np.arange(keyframes), ba_points).astype(np.int32),
+                             device=dev)
+        pi = torch.as_tensor(np.tile(np.arange(ba_points), keyframes).astype(np.int32),
+                             device=dev)
+        uv = geo.project(geo.transform(poses[ci], pts[pi]), intr)
+        uv = uv + torch.as_tensor(rng.normal(0, MAP_SIGMA, tuple(uv.shape)).astype(np.float32),
+                                  device=dev)
+        pts0 = pts + torch.as_tensor(rng.normal(0, 0.002, tuple(pts.shape)).astype(np.float32),
+                                     device=dev)
+        out["problem"] = ba.BAProblem(poses=out["opt"], points=pts0, intrinsics=intr,
+                                      cam_idx=ci, pt_idx=pi, uv=uv,
+                                      weight=torch.ones(keyframes * ba_points,
+                                                        dtype=torch.float32, device=dev))
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+        out["ba"] = resumable.solve_resumable(out["problem"], ckpt, iters=lm, cg_iters=cg,
+                                              every=every)
+    peak("bundle adjustment")
+    out["stages"] = stages
+    return out
+
+
+def paired_path(tag, err):
+    """A matcher pipeline (a ``fused_refine._Path``) whose every stage runs
+    the kernel's wrapper and its plain version on the same inputs, holds
+    their outputs equal (NaN at the same pixels, max |Δ| ≤ ``MAX_ERR`` at
+    the others, as ``check_equal``; masks equal) and passes the wrapper's
+    outputs on (equal to the plain ones, laid out as the main path lays
+    them): driven through ``fused_refine``'s own loops, it checks each
+    kernel at the shapes and plans the main path gives it. Returns the
+    path and a dict of each kernel's checked calls and shapes."""
+    from stepth_tpu_torch.match import fused_dense, fused_post, fused_refine
+
+    seen = {}
+
+    def pair(names, fused, plain):
+        def run(*args, **kw):
+            got, want = fused(*args, **kw), plain(*args, **kw)
+            single = not isinstance(want, tuple)
+            if single:
+                got, want = (got,), (want,)
+            names_out = [names[min(i, len(names) - 1)] for i in range(len(want))]
+            for name, g, w in zip(names_out, got, want):
+                if w.dtype == torch.bool:
+                    e = 0.0 if torch.equal(w, g) else float("inf")
+                else:
+                    nan = torch.isnan(w)
+                    d = torch.where(nan | (w == g), 0.0, (w.double() - g.double()).abs())
+                    e = float(d.max()) if torch.equal(nan, torch.isnan(g)) else float("inf")
+                if not e <= MAX_ERR:
+                    raise AssertionError(f"{tag}: {name} at {tuple(w.shape)} differs from its "
+                                         f"plain version (max |d| {e})")
+                err(name, e)
+            for name in dict.fromkeys(names_out):  # one call of each kernel
+                calls, shapes = seen.get(name, (0, set()))
+                seen[name] = (calls + 1, shapes | {tuple(want[0].shape)})
+            return got[0] if single else got
+        return run
+
+    def no_sgm(*_args, **_kw):
+        raise AssertionError(f"{tag}: the SGM coarse level is not on this path")
+
+    path = fused_refine._Path(
+        pair(("K1",), fused_dense.raw_match, fused_dense.raw_match_plain), no_sgm,
+        pair(("K2", "K2 emit"), fused_refine.refine_level, fused_refine.refine_level_plain),
+        pair(("K4",), fused_post.lr_consistency_fused, fused_post.lr_consistency_plain),
+        pair(("K5",), fused_post.fill_invalid_fused, fused_post.fill_invalid_plain),
+        pair(("K3",), fused_post.median3_fused, fused_post.median3_plain))
+    return path, seen
+
+
+def print_paired(tag, seen):
+    """One line: the kernels a ``paired_path`` checked, their calls and shapes."""
+    print(f"  {tag}, stage by stage against the plain versions, bit-equal: " + "; ".join(
+        f"{k} {n}x at " + ", ".join("x".join(map(str, s)) for s in sorted(shapes))
+        for k, (n, shapes) in seen.items()))
+
+
+def depth_accuracy(world, out):
+    """mapping_bench's accuracy numbers: fused coverage, conf ≥ 3 share,
+    median |dZ|/Z and the share within 1% (fused, conf ≥ 3; single view,
+    keyframe 0's own depth)."""
+    z0 = world["z0"]
+    fdepth = out["fused"].depth.cpu().numpy()
+    fconf = out["fused"].confidence.cpu().numpy()
+    have = fdepth > 0
+    core = have & (fconf >= 3)
+    relerr = np.abs(fdepth - z0) / z0
+    d0 = out["depths"][0].cpu().numpy()
+    single = np.abs(d0 - z0) / z0
+    ok = d0 > 0
+    return dict(coverage=float(have.mean()), conf3=float(core.mean()),
+                fused_median=float(np.median(relerr[core])),
+                fused_in1=float((relerr[core] < 0.01).mean()),
+                single_median=float(np.median(single[ok])),
+                single_in1=float((single[ok] < 0.01).mean()))
+
+
+def busy_share(trace_path):
+    """The device's busy share over a ``device_trace`` Chrome trace: the
+    union of its kernel, copy and fill intervals over the span of every
+    event traced; with the device's busy ms and the span's ms."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        raise AssertionError(f"{trace_path}: no device activity traced")
+    start = min(e["ts"] for e in events)
+    span = max(e["ts"] + e.get("dur", 0) for e in events) - start
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in device:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / span, busy / 1e3, span / 1e3
+
+
+def two_view_scene(h, w):
+    """examples/two_view_reconstruction.py's rig: a textured curved surface
+    seen by two cameras (``x_cam2 = R x_cam1 + T``); returns the views, K,
+    R, T and a function giving the ground-truth rectified depth median of
+    the interior crop for the rectification of a pose estimate."""
+    K = np.array([[200.0, 0.0, w / 2], [0.0, 200.0, h / 2], [0.0, 0.0, 1.0]], np.float32)
+    R = (rot("y", 5.0) @ rot("x", -2.0)).astype(np.float32)
+    T = np.array([-0.8, 0.04, 0.02], np.float32)
+
+    def zsurf(xw, yw):
+        return 5.0 + 1.2 * np.sin(1.3 * xw) + 0.9 * np.cos(1.1 * yw)
+
+    def tex(xw, yw):
+        v = 120 + 60 * np.sin(7.1 * xw) + 50 * np.cos(5.3 * yw)
+        v += 25 * np.sin(13.7 * xw + 11.9 * yw) + 15 * np.cos(23.0 * xw * yw)
+        return v
+
+    def render(rays, origin):
+        s = (5.0 - origin[2]) / rays[..., 2]
+        for _ in range(60):
+            X = origin + s[..., None] * rays
+            s = (zsurf(X[..., 0], X[..., 1]) - origin[2]) / rays[..., 2]
+        X = origin + s[..., None] * rays
+        return tex(X[..., 0], X[..., 1]).astype(np.float32)
+
+    xx, yy = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
+    pix = np.stack([xx, yy, np.ones_like(xx)], -1)
+    rays1 = np.einsum("ij,hwj->hwi", np.linalg.inv(K), pix)
+    img1 = render(rays1, np.zeros(3, np.float32))
+    img2 = render(np.einsum("ji,hwj->hwi", R, rays1), -R.T @ T)
+
+    def gt_median(R_est, T_est, K_new):
+        """Median ground-truth depth of the rectified left camera over the
+        interior crop (rays from K_new and the rectifying rotation of the
+        estimate, intersected with the surface)."""
+        c2 = -R_est.T @ T_est
+        v1 = c2 / np.linalg.norm(c2)
+        v2 = np.cross([0.0, 0.0, 1.0], v1)
+        v2 /= np.linalg.norm(v2)
+        v3 = np.cross(v1, v2)
+        R_new = np.stack([v1, v2, v3]).astype(np.float32)
+        rays = np.einsum("ji,hwj->hwi", R_new, np.einsum("ij,hwj->hwi", np.linalg.inv(K_new), pix))
+        s = 5.0 / rays[..., 2]
+        for _ in range(60):
+            X = s[..., None] * rays
+            s = zsurf(X[..., 0], X[..., 1]) / rays[..., 2]
+        z = np.einsum("j,hwj->hw", v3.astype(np.float32), s[..., None] * rays)
+        return float(np.median(z[24:-24, 32:-32]))
+
+    return img1, img2, K, R, T, gt_median
+
+
+def two_view(img1, img2, K, dev, rectify_backend, seed=0, matches=None, pose=None):
+    """The two-view flow on ``dev``: features, pose (RANSAC drawn from
+    ``seed``, cheirality, two-view BA), rectification with the estimate (the
+    known baseline sets the scale), the dense match (``hierarchical-pallas``,
+    SAD, D=64) and metric depth. ``matches`` (uv1, uv2) skips the features;
+    ``pose`` (R, t_unit) skips the features and the pose. Returns the
+    corners (None when skipped), the matches, the pose, the dense median
+    depth of the interior crop, the views, the maps, the rectified pair, the
+    model and its match result."""
+    from stepth_tpu_torch.config import MatchConfig, PyramidConfig
+    from stepth_tpu_torch.fusion import epipolar, geometry as geo
+    from stepth_tpu_torch.match import features
+    from stepth_tpu_torch.models.stereo import StereoModel
+    from stepth_tpu_torch.ops import rectify
+
+    baseline = float(np.linalg.norm(np.array([-0.8, 0.04, 0.02], np.float32)))
+    l1 = torch.as_tensor(img1, device=dev)
+    l2 = torch.as_tensor(img2, device=dev)
+    corners = None
+    if pose is not None:
+        R_est, t_unit = (torch.as_tensor(np.asarray(v, np.float32), device=dev) for v in pose)
+    else:
+        if matches is None:
+            corners = features.harris_corners(l1, max_corners=512)
+            matches = features.match_pair_features(l1, l2, max_corners=512, min_similarity=0.8)
+        R_est, t_unit, _ = epipolar.pose_from_correspondences(*matches, K, K, seed=seed)
+    T_est = t_unit * baseline
+    maps = rectify.rectify_maps(K, K, R_est, T_est, img1.shape)
+    rl, rr = rectify.rectify_pair(l1, l2, maps, backend=rectify_backend)
+    model = StereoModel(backend="hierarchical-pallas",
+                        match=MatchConfig(num_disparities=64, window=9, cost="sad"),
+                        pyramid=PyramidConfig(levels=3, coarsest_disparities=16))
+    res = model(rl, rr)
+    depth = geo.disparity_to_depth(res.disparity, maps.focal, maps.baseline)
+    med = float(torch.median(depth[24:-24, 32:-32]))
+    return dict(corners=corners, matches=matches, R=R_est.cpu().numpy(),
+                t=t_unit.cpu().numpy(), K_new=maps.K_new.cpu().numpy(), depth_median=med,
+                T_est=T_est.cpu().numpy(), views=(l1, l2), maps=maps, rectified=(rl, rr),
+                model=model, match=res)
+
+
+def segsum_times(prob, dev, card):
+    """Device ms of BA's deterministic segment sums at ``prob``'s index
+    sets, both ways: the one-hot product (a full-f32 matmul) and the rows
+    sorted once by segment then ``segment_reduce``; beside them the
+    library's ``index_add_`` (atomics: not deterministic, never used by the
+    port). Widths as one LM step sums them (Hessian blocks with gradients,
+    then S·x inside CG)."""
+    from stepth_tpu_torch.fusion import ba
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for which, idx, n, widths in (("cameras", prob.cam_idx, prob.poses.shape[0], (42, 6)),
+                                  ("points", prob.pt_idx, prob.points.shape[0], (12, 3))):
+        order = torch.argsort(idx, stable=True)
+        lengths = torch.bincount(idx, minlength=n)
+        segs = torch.arange(n, dtype=idx.dtype, device=dev)
+        idx64 = idx.long()
+        for width in widths:
+            x = torch.randn((idx.shape[0], width), generator=gen, device=dev)
+            fns = {
+                "one-hot": lambda: ba.matmul_f32((idx[:, None] == segs[None, :]).float().T, x),
+                "sorted": lambda: torch.segment_reduce(x[order], "sum", lengths=lengths,
+                                                       axis=0, unsafe=True),
+                "index_add_": lambda: torch.zeros((n, width), device=dev).index_add_(0, idx64, x),
+            }
+            ms = {k: device_ms(f, launches=20) for k, f in fns.items()}
+            gap = float((fns["one-hot"]() - fns["sorted"]()).abs().max())
+            print(f"  BA segment sum, {idx.shape[0]} rows x {width} into {n} {which}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+                  + f" (device); one-hot vs sorted max |d| {gap:.3g}, card: {card}")
+
+
+def mapping_flows(dev, card, drive, err):
+    """Phase 7: a. the mapping path at 1088×1920 with 8 keyframes
+    (``mapping_run``): the K1–K5 launches of the clip, each stage's time
+    and peak memory, the device's busy share over one run (a
+    ``device_trace``), the accuracy checks, the resumable and repeated BA
+    bit for bit, the card's BA and fusion against CPU tensors, every kernel
+    call of the clip against its plain version (``paired_path``), BA's
+    segment sums timed both ways (``segsum_times``); b. the two-view flow at
+    160×224 (K11 twice, K1–K3), its kernels against their plain versions,
+    the example's pose and depth checks and the corner set against the
+    CPU's. Returns the clip's launch counts."""
+    from stepth_tpu_torch.fusion import ba, depthfusion, posegraph, resumable
+    from stepth_tpu_torch.match import fused_refine
+    from stepth_tpu_torch.ops import fused_remap
+    from stepth_tpu_torch.utils.tracing import device_trace
+
+    t_phase = time.perf_counter()
+    h, w = MAP_SHAPE
+    print(f"== 7a. the mapping path, {h}x{w}, {MAP_KEYFRAMES} keyframes, census + LR D={MAP_D} "
+          f"levels {MAP_LEVELS}, {MAP_BA_POINTS} BA points x {MAP_KEYFRAMES} cameras, "
+          f"{MAP_LM} LM iterations (cg {MAP_CG}, checkpoint every {MAP_EVERY}), card: {card}")
+    t0 = time.perf_counter()
+    world = mapping_world(h, w, MAP_KEYFRAMES, MAP_D, dev)
+    print(f"  world, ground truth and {MAP_KEYFRAMES} pairs rendered in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    model = mapping_model(MAP_D, MAP_LEVELS, MAP_COARSEST)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ba.npz")
+        mapping_run(world, model, dev, ckpt)  # warm-up
+        torch.cuda.synchronize()
+        peaks = {}
+        t0 = time.perf_counter()
+        out, launches = drive(lambda: mapping_run(world, model, dev, ckpt, peaks=peaks))
+        wall = time.perf_counter() - t0
+        for k in ("K1", "K2", "K2 emit", "K3", "K4", "K5"):
+            if launches[k] < 1:
+                raise AssertionError(f"mapping clip: {k} not launched")
+        print("  launches on the clip: " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                                     if v))
+        s = out["stages"].summary()
+        t = {k: v["total_s"] for k, v in s.items()}
+        print(f"  matcher {MAP_KEYFRAMES / t['match']:.4f} frames/s ({t['match'] * 1e3:.4f} ms "
+              f"for the clip), fuse {t['fuse'] * 1e3:.4f} ms, pose graph "
+              f"{t['pose graph'] * 1e3:.4f} ms, BA {MAP_LM / t['bundle adjustment']:.4f} LM "
+              f"iterations/s ({t['bundle adjustment'] * 1e3:.4f} ms with 2 checkpoints); end "
+              f"to end {wall * 1e3:.4f} ms (stages synchronised, host clock), card: {card}")
+        print("  peak memory per stage, above what was held when it began: " + ", ".join(
+            f"{k} {v / 2 ** 30:.4f} GiB" for k, v in peaks.items())
+            + f" ({torch.cuda.memory_allocated(dev) / 2 ** 30:.4f} GiB held after the run), "
+            f"card: {card}")
+        with device_trace(tmp) as prof:
+            mapping_run(world, model, dev, ckpt)
+            torch.cuda.synchronize()
+        share, busy_ms, span_ms = busy_share(os.path.join(tmp, "trace.json"))
+        print(f"  device busy {share:.4f} of one traced mapping run ({busy_ms:.4f} of "
+              f"{span_ms:.4f} ms; the profiler's own cost included), card: {card}")
+        del prof
+
+        acc = depth_accuracy(world, out)
+        res = out["match"]
+        gt_disp = np.clip(float(world["intr"][0]) * MAP_B / np.maximum(world["gt"], 1e-3), 0,
+                          MAP_D - 1)
+        valid = res.valid.cpu().numpy()
+        epe = float(np.abs(res.disparity.cpu().numpy() - gt_disp)[valid].mean())
+        print(f"  clip EPE {epe:.4f} px (valid {valid.mean():.4f}); fused coverage "
+              f"{acc['coverage']:.4f}, conf>=3 {acc['conf3']:.4f}; fused |dZ|/Z median "
+              f"{acc['fused_median']:.6f} / within 1% {acc['fused_in1']:.4f} against the "
+              f"single view's {acc['single_median']:.6f} / {acc['single_in1']:.4f}")
+        if not acc["fused_median"] < acc["single_median"]:
+            raise AssertionError("fused median |dZ|/Z does not beat the single view's")
+        pg_err = float(posegraph.total_error(out["graph"], out["opt"]))
+        pose_rmse = float(np.sqrt(np.mean((out["opt"].cpu().numpy() - world["poses"]) ** 2)))
+        print(f"  pose graph residual {pg_err:.3e}, pose RMSE against ground truth "
+              f"{pose_rmse:.3e}")
+        if not pg_err < 1e-6:
+            raise AssertionError(f"pose-graph residual {pg_err} >= 1e-6")
+        prob, st = out["problem"], out["ba"]
+        c0, c1 = float(ba._cost(prob, prob.poses, prob.points)), float(st.cost)
+        limit = 1.5 * 2 * MAP_SIGMA ** 2
+        print(f"  BA cost {c0:.6f} -> {c1:.6f} (limit 1.5 x 2 sigma^2 = {limit:.4f})")
+        if not (c1 < c0 and c1 < limit):
+            raise AssertionError(f"BA cost {c0} -> {c1}")
+
+        # the resumable solve interrupted after the first checkpoint, rerun
+        class Interrupt(Exception):
+            pass
+
+        def interrupt(done, _state):
+            if done == MAP_EVERY:
+                raise Interrupt()
+
+        os.remove(ckpt)
+        try:
+            resumable.solve_resumable(prob, ckpt, iters=MAP_LM, cg_iters=MAP_CG,
+                                      every=MAP_EVERY, on_segment=interrupt)
+            raise AssertionError("the interrupting hook never fired")
+        except Interrupt:
+            pass
+        resumed = resumable.solve_resumable(prob, ckpt, iters=MAP_LM, cg_iters=MAP_CG,
+                                            every=MAP_EVERY)
+        straight = ba.solve(prob, iters=MAP_LM, cg_iters=MAP_CG)
+        again = ba.solve(prob, iters=MAP_LM, cg_iters=MAP_CG)
+        for name, a, b in (("resumed (interrupted at 5) vs straight", resumed, straight),
+                           ("second straight run vs first", again, straight),
+                           ("solve_resumable vs straight", st, straight)):
+            for field in ("poses", "points", "cost", "lm_lambda"):
+                if not bits_equal(getattr(b, field), getattr(a, field)):
+                    raise AssertionError(f"BA {name}: {field} differs")
+        print("  BA bit for bit on the card: solve_resumable interrupted at iteration "
+              f"{MAP_EVERY} and rerun == a straight solve == a second straight solve")
+        cpu = torch.device("cpu")
+        prob_cpu = ba.BAProblem(*(t.cpu() for t in prob))
+        t0 = time.perf_counter()
+        on_cpu = ba.solve(prob_cpu, iters=MAP_LM, cg_iters=MAP_CG)
+        t_cpu = time.perf_counter() - t0
+        dp = float((straight.poses.cpu() - on_cpu.poses).abs().max())
+        dx = float((straight.points.cpu() - on_cpu.points).abs().max())
+        print(f"  BA card vs CPU tensors: poses {dp:.3e}, points {dx:.3e}, cost "
+              f"{float(straight.cost):.6f} vs {float(on_cpu.cost):.6f} (CPU solve "
+              f"{t_cpu:.1f} s)")
+        if not (dp <= 5e-3 and dx <= 5e-3 and
+                abs(float(straight.cost) - float(on_cpu.cost)) <= 1e-4 + 0.3 * float(on_cpu.cost)):
+            raise AssertionError("BA card vs CPU outside the 5e-3 rule")
+        poses = torch.as_tensor(world["poses"])
+        intr = torch.as_tensor(world["intr"])
+        fused_cpu = depthfusion.fuse_depths(out["depths"].cpu(), poses, poses[0], intr)
+        fd, fc = out["fused"].depth.cpu(), fused_cpu.depth
+        close = (fd - fc).abs() <= 1e-5 * fc.abs()
+        share_close = float(close.float().mean())
+        print(f"  fuse card vs CPU: {share_close:.6f} of pixels within 1e-5 relative, "
+              f"confidence equal at {float((out['fused'].confidence.cpu() == fused_cpu.confidence).float().mean()):.6f}")
+        if share_close < 0.999:
+            raise AssertionError("fuse card vs CPU: under 99.9% within 1e-5")
+
+        # the clip's kernels at the shapes and plans the clip gives them,
+        # against their plain versions; the checked path's output is the
+        # driven video's
+        path, seen = paired_path("mapping clip", err)
+        checked = fused_refine._match_temporal(
+            path, torch.as_tensor(world["lefts"], device=dev),
+            torch.as_tensor(world["rights"], device=dev), model.match, model.pyramid, 4,
+            64, model.lr_check, model._coarse(), None, model.sgm)  # video()'s tile_rows
+        if not (torch.equal(checked.disparity, out["match"].disparity)
+                and torch.equal(checked.valid, out["match"].valid)):
+            raise AssertionError("mapping clip: the checked path's output is not the video's")
+        print_paired(f"mapping clip ({MAP_KEYFRAMES} frames, keyframes every 4)", seen)
+        for k in ("K1", "K2", "K2 emit", "K3", "K4", "K5"):
+            if seen[k][0] != launches[k]:
+                raise AssertionError(f"mapping clip: {k} checked {seen[k][0]} times, "
+                                     f"launched {launches[k]}")
+        segsum_times(prob, dev, card)
+    del out, world
+
+    h2, w2 = TWO_VIEW_SHAPE
+    print(f"== 7b. the two-view flow, {h2}x{w2}: features, pose, rectify_pair(backend="
+          f"'pallas'), hierarchical-pallas SAD D=64 levels 3, card: {card}")
+    img1, img2, K, R_gt, T_gt, gt_median = two_view_scene(h2, w2)
+    t0 = time.perf_counter()
+    got, tv_launches = drive(lambda: two_view(img1, img2, K, dev, "pallas"))
+    t_tv = time.perf_counter() - t0
+    print("  launches: " + ", ".join(f"{k} {v}" for k, v in tv_launches.items() if v)
+          + f"; {t_tv * 1e3:.4f} ms end to end (first call of the flow), card: {card}")
+    for k, n in (("K11", 2), ("K1", 1), ("K2", 2), ("K3", 1)):
+        if tv_launches[k] != n:
+            raise AssertionError(f"two-view: {k} launched {tv_launches[k]} times, not {n}")
+    # K11 and the matcher's kernels at the flow's shapes, against their plain
+    # versions on the same inputs
+    maps = got["maps"]
+    for side, img, m, warped in zip(("left", "right"), got["views"],
+                                    (maps.map_left, maps.map_right), got["rectified"]):
+        if not bits_equal(fused_remap.remap_bilinear_plain(img, m), warped):
+            raise AssertionError(f"two-view: K11 ({side} view) differs from its plain version")
+        err("K11", 0.0)
+    path, seen = paired_path("two-view", err)
+    tv_model = got["model"]
+    checked = fused_refine._match_hierarchical(path, *got["rectified"], tv_model.match,
+                                               tv_model.pyramid, 64, False, "wta", None)
+    if not torch.equal(checked.disparity, got["match"].disparity):
+        raise AssertionError("two-view: the checked path's output is not the model's")
+    print(f"  K11 2x at {h2}x{w2} (gray): bit-equal to its plain version")
+    print_paired("two-view matcher", seen)
+    ex = two_view(img1, img2, K, dev, "pallas", pose=TWO_VIEW_EXAMPLE_POSE)
+    med_gt = gt_median(ex["R"], ex["T_est"], ex["K_new"])
+    print(f"  the example's run (the JAX package's pose of its draw 0): dense median depth "
+          f"{ex['depth_median']:.4f} vs ground truth {med_gt:.4f}")
+    if not abs(ex["depth_median"] - med_gt) < 0.4:
+        raise AssertionError("two-view: the example's depth check failed on its own pose")
+    depth_passes = 0
+    for seed in range(TWO_VIEW_SEEDS):
+        r = got if seed == 0 else two_view(img1, img2, K, dev, "pallas", seed=seed,
+                                           matches=got["matches"])
+        rot_err = float(np.abs(r["R"] - R_gt).max())
+        cosang = float(np.dot(r["t"], T_gt / np.linalg.norm(T_gt)))
+        t_ang = float(np.rad2deg(np.arccos(np.clip(cosang, -1.0, 1.0))))
+        med_gt = gt_median(r["R"], r["T_est"], r["K_new"])
+        depth_ok = abs(r["depth_median"] - med_gt) < 0.4
+        depth_passes += depth_ok
+        print(f"  seed {seed}: {r['matches'][0].shape[0]} matches; |R - R_gt|max {rot_err:.4f}, "
+              f"t-direction error {t_ang:.4f} deg; dense median depth "
+              f"{r['depth_median']:.4f} vs ground truth {med_gt:.4f}"
+              + ("" if depth_ok else " (off by 0.4 or more)"))
+        if not (rot_err < 3e-2 and t_ang < 9.0):
+            raise AssertionError(f"two-view seed {seed}: the example's pose checks failed")
+    print(f"  dense depth within 0.4 on {depth_passes} of the port's {TWO_VIEW_SEEDS} draws (at "
+          f"least {TWO_VIEW_MIN_DEPTH_PASSES}, the JAX package's count over its own)")
+    if depth_passes < TWO_VIEW_MIN_DEPTH_PASSES:
+        raise AssertionError("two-view: the dense depth check held on too few draws")
+    from stepth_tpu_torch.match import features
+    c_card = got["corners"]
+    c_cpu = features.harris_corners(img1, max_corners=512, device="cpu")
+
+    def corner_set(c):
+        xy = c.xy.cpu().numpy()[c.valid.cpu().numpy()]
+        return xy[np.lexsort((xy[:, 1], xy[:, 0]))]
+
+    a, b = corner_set(c_card), corner_set(c_cpu)
+    if a.shape != b.shape or not np.array_equal(a, b):
+        raise AssertionError("two-view: the card's corner set differs from the CPU's")
+    print(f"  corner set on the card == on the CPU ({a.shape[0]} valid corners)")
+    print(f"== phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2049,6 +2696,10 @@ def main() -> int:
     # backend, the CLI and the loader
     reference_flows(dev, smi[0], drive, prod, prod_launches, model, pairs["make_pair"])
 
+    # 7. the mapping path (depth fusion, pose graph, resumable BA) and the
+    # two-view flow
+    mapping_launches = mapping_flows(dev, smi[0], drive, err)
+
     # bounds at the shapes each kernel was timed at: K1-K5 on the production
     # path (K1 and K2 census, planes in the bytes; K2 counts the candidates
     # its plans ran), K6-K10 on sgm-pallas at 1080p, D=64 (K7 per launch,
@@ -2099,7 +2750,8 @@ def main() -> int:
         {"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
          "launches": origin[n][1][n], "path": origin[n][0], "max_abs_err": errs[n],
          "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": bounds[n][0],
-         "bound_by": bounds[n][1], "library_ms": library_ms.get(n), "device_ms": device[n]}
+         "bound_by": bounds[n][1], "library_ms": library_ms.get(n), "device_ms": device[n],
+         "mapping_launches": mapping_launches[n]}
         for n, k in KERNELS.items()
     ]}
     extra = {

@@ -26,7 +26,16 @@ and the calibrated-rig path around them: ``ops.photometric`` (gain match),
 ``ops.rectify`` (maps once per rig, then one bilinear remap per view, kernel
 K11 in ``ops.fused_remap``), ``fusion.geometry`` (metric depth, points) and
 ``core.io.save_ply``, with the depth utilities of ``ops`` (``kmeans``,
-``depth``, ``mask``, ``resize``, ``adjust``, ``temporal``).
+``depth``, ``mask``, ``resize``, ``adjust``, ``temporal``); the mapping
+path of ``fusion``: ``depthfusion`` (forward-splatted z-buffer fusion of
+posed keyframe depths), ``posegraph`` (Gauss–Newton over SE(3), robust
+losses), ``ba`` (Schur-complement LM with deterministic segment sums,
+sharded over a ``parallel.mesh.Mesh``) and ``resumable`` (checkpointed,
+resumable BA, with ``utils.checkpoint`` and ``utils.supervisor``); the
+two-view front end, ``match.features`` (Harris, patches, mutual NN) and
+``fusion.epipolar`` (eight-point RANSAC, cheirality, two-view BA); and
+``utils.metrics``, ``utils.debug`` and ``utils.tracing`` (stage timers and
+``torch.profiler`` traces).
 
 Every function takes its device from its input tensors. A tensor on the CPU
 runs each kernel's plain PyTorch version; a CUDA tensor launches the kernel

@@ -1,6 +1,8 @@
-"""Multi-view geometry (twin of ``stepth_tpu/fusion``). Ported so far:
-``geometry`` (SE(3), projection, disparity to depth and points)."""
+"""Multi-view geometry and mapping (twin of ``stepth_tpu/fusion``): SE(3)
+geometry, two-view epipolar geometry, multi-keyframe depth fusion,
+pose-graph optimisation, Schur-complement bundle adjustment (sharded over a
+mesh) and its resumable, checkpointed solve."""
 
-from stepth_tpu_torch.fusion import geometry
+from stepth_tpu_torch.fusion import ba, depthfusion, epipolar, geometry, posegraph, resumable
 
-__all__ = ["geometry"]
+__all__ = ["ba", "depthfusion", "epipolar", "geometry", "posegraph", "resumable"]

@@ -96,20 +96,29 @@ def test_blocked_cumsum_is_the_references(rng):
             np.testing.assert_array_equal(np_(got), np_(want))
 
 
-def test_rgb_and_box_scene_within_tolerance(rng):
-    """Float images (an RGB pair; the ``box`` scene, whose tiles plan
-    several windows at its depth edges): the rule of
-    tests/test_pallas_dense.py:15-24."""
-    left, right = make_pair(rng, h=96, w=128, shift=10)
-    rgb_l = np.stack([left, 0.8 * left + 20.0, 255.0 - left], -1).astype(np.float32)
-    rgb_r = np.stack([right, 0.8 * right + 20.0, 255.0 - right], -1).astype(np.float32)
-    box = scenes.make_scene("box", 96, 128, 32, seed=1)
-    for l, r in ((rgb_l, rgb_r), (box.left, box.right)):
+def test_rgb_and_box_scene_within_tolerance():
+    """Float images, bit for bit: gray and RGB ``make_pair`` at 96×128,
+    seeds 0-2 (this file's config), and the ``box`` (tiles that plan
+    several windows at its depth edges) and ``slant`` scenes at 270×480,
+    D=64, ``levels=3``, ``coarsest_disparities=16``, seed 2."""
+    pairs = []
+    for seed in range(3):
+        left, right = make_pair(np.random.default_rng(seed), h=96, w=128, shift=10)
+        rgb_l = np.stack([left, 0.8 * left + 20.0, 255.0 - left], -1).astype(np.float32)
+        rgb_r = np.stack([right, 0.8 * right + 20.0, 255.0 - right], -1).astype(np.float32)
+        pairs += [(left, right, CFG, PYR), (rgb_l, rgb_r, CFG, PYR)]
+    scene_cfg = dict(num_disparities=64, window=9)
+    scene_pyr = dict(levels=3, refine_radius=3, coarsest_disparities=16)
+    for name in ("box", "slant"):
+        sc = scenes.make_scene(name, 270, 480, 64, seed=2)
+        pairs.append((sc.left, sc.right, scene_cfg, scene_pyr))
+    for l, r, cfg, pyr in pairs:
         want = ref_pyramid.match_hierarchical(jnp.asarray(l), jnp.asarray(r),
-                                              RefMatchConfig(**CFG), RefPyramidConfig(**PYR))
-        got = pyramid.match_hierarchical(l, r, MatchConfig(**CFG), PyramidConfig(**PYR),
+                                              RefMatchConfig(**cfg), RefPyramidConfig(**pyr))
+        got = pyramid.match_hierarchical(l, r, MatchConfig(**cfg), PyramidConfig(**pyr),
                                          device="cpu")
-        assert_close(np_(want.disparity), np_(want.valid), np_(got.disparity), np_(got.valid))
+        np.testing.assert_array_equal(np_(got.disparity), np_(want.disparity))
+        np.testing.assert_array_equal(np_(got.valid), np_(want.valid))
 
 
 def test_model_backend_matches_reference(rng):
