@@ -169,9 +169,28 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    ground truth on at least 7 draws, the JAX package's count on its own
    draws) and the corner set equal to the CPU's.
 
+8. the multi-process layer (``multiprocess_drills``): two workers of
+   ``python -m stepth_tpu_torch.parallel.drill`` share the card under gloo
+   (transfers staged through the host), each holding half the slots of a
+   ``distributed.global_mesh`` and poisoning the input rows it does not
+   own with NaN: a.-c. in one worker pair, production
+   ``hierarchical-pallas`` at 1024×1920 on ``tile=4``, the exact
+   ``sgm-pallas`` relay (K10 across the process boundary) at 1088×1920 on
+   ``tile=4`` and BA at the mapping size (4,096 points × 8 cameras, 10 LM
+   iterations) on ``data=8``: each rank equal bit for bit to the same call
+   on a one-process mesh of the same shape and to the other rank, every
+   kernel call of a. and b. equal to its plain version, median disparity
+   24 ± 0.5, launches per frame and rank, the bytes sent across, and the
+   2-process call against the one-process call timed in turns; d. the
+   resumable drill (rank 1 dies after the first checkpointed segment, the
+   supervisor relaunches the survivor alone on ``auto_mesh`` over four
+   slots of ``cuda:0``, its cost below 7a's limit); e. the failure drill
+   (the seconds from the peer's death to its detection).
+
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
-entry's ``path``, and ``mapping_launches`` from 7a's clip); the last line is ``{"ok": true, "device": {...}}``.
+entry's ``path``, ``mapping_launches`` from 7a's clip and
+``drill_launches``, each rank's, from 8a-b); the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 2 and prints no result. Imports nothing of
 JAX.
 """
@@ -187,6 +206,8 @@ import time
 
 import numpy as np
 import torch
+
+from stepth_tpu_torch.parallel.drill import BA_SIZES, make_clip, make_pair
 
 SEED = 0  # seed of the smooth pair, the clip and the random maps
 REPS = 10  # timed runs per measurement (median)
@@ -212,23 +233,6 @@ def cost_ops(cfg, planes):
     joining three 3-sums), ``window − 1`` for the others."""
     cost = 3 * planes - 1 if cfg.cost == "census" else 2
     return cost + 2 * (4 if cfg.window == 9 else cfg.window - 1)
-
-
-def make_pair(h, w, shift=24, seed=0):
-    """The benchmark's smooth textured pair (right = left shifted by
-    ``shift`` px): box-blurred uniform noise."""
-    left, rights = make_clip(h, w, [shift], seed)
-    return left, rights[0]
-
-
-def make_clip(h, w, shifts, seed=0):
-    """One left view and a right view per shift of the same texture."""
-    rng = np.random.default_rng(seed)
-    tex = rng.uniform(0, 255, size=(h, w + max(shifts))).astype(np.float32)
-    k = np.ones(9, np.float32) / 9
-    tex = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), 1, tex)
-    tex = np.apply_along_axis(lambda m: np.convolve(m, k, mode="same"), 0, tex)
-    return tex[:, :w], [tex[:, s : s + w] for s in shifts]
 
 
 def rot(axis, deg):
@@ -997,8 +1001,10 @@ MAP_SHAPE = (1088, 1920)
 MAP_D, MAP_LEVELS, MAP_COARSEST = 128, 4, 16
 MAP_KEYFRAMES = 8
 MAP_F, MAP_B, MAP_STRAFE = 1000.0, 0.05, 0.02  # focal px, stereo baseline m, m a keyframe
-MAP_BA_POINTS, MAP_LM, MAP_CG, MAP_EVERY = 4096, 10, 10, 5
-MAP_SIGMA = 0.3  # px of noise on the BA observations
+# its BA (points, LM and CG iterations, a checkpoint every, px of noise on
+# the observations), which phase 8's drills solve too
+MAP_BA_POINTS, MAP_LM, MAP_CG, MAP_EVERY, MAP_SIGMA = (
+    BA_SIZES["full"][k] for k in ("pts", "iters", "cg", "every", "sigma"))
 MAP_SEED = 7
 # the two-view flow (phase 7b): examples/two_view_reconstruction.py's scene.
 # Its dense-depth check holds or fails with the RANSAC draw (the pose's
@@ -1170,39 +1176,19 @@ def mapping_run(world, model, dev, ckpt, ba_points=MAP_BA_POINTS, lm=MAP_LM, cg=
 def paired_path(tag, err):
     """A matcher pipeline (a ``fused_refine._Path``) whose every stage runs
     the kernel's wrapper and its plain version on the same inputs, holds
-    their outputs equal (NaN at the same pixels, max |Δ| ≤ ``MAX_ERR`` at
-    the others, as ``check_equal``; masks equal) and passes the wrapper's
+    their outputs equal (NaN at the same pixels, every other value in the
+    same bits: ``MAX_ERR`` is 0; masks equal) and passes the wrapper's
     outputs on (equal to the plain ones, laid out as the main path lays
     them): driven through ``fused_refine``'s own loops, it checks each
     kernel at the shapes and plans the main path gives it. Returns the
     path and a dict of each kernel's checked calls and shapes."""
     from stepth_tpu_torch.match import fused_dense, fused_post, fused_refine
+    from stepth_tpu_torch.parallel.drill import paired
 
     seen = {}
 
     def pair(names, fused, plain):
-        def run(*args, **kw):
-            got, want = fused(*args, **kw), plain(*args, **kw)
-            single = not isinstance(want, tuple)
-            if single:
-                got, want = (got,), (want,)
-            names_out = [names[min(i, len(names) - 1)] for i in range(len(want))]
-            for name, g, w in zip(names_out, got, want):
-                if w.dtype == torch.bool:
-                    e = 0.0 if torch.equal(w, g) else float("inf")
-                else:
-                    nan = torch.isnan(w)
-                    d = torch.where(nan | (w == g), 0.0, (w.double() - g.double()).abs())
-                    e = float(d.max()) if torch.equal(nan, torch.isnan(g)) else float("inf")
-                if not e <= MAX_ERR:
-                    raise AssertionError(f"{tag}: {name} at {tuple(w.shape)} differs from its "
-                                         f"plain version (max |d| {e})")
-                err(name, e)
-            for name in dict.fromkeys(names_out):  # one call of each kernel
-                calls, shapes = seen.get(name, (0, set()))
-                seen[name] = (calls + 1, shapes | {tuple(want[0].shape)})
-            return got[0] if single else got
-        return run
+        return paired(tag, names, fused, plain, seen, err)
 
     def no_sgm(*_args, **_kw):
         raise AssertionError(f"{tag}: the SGM coarse level is not on this path")
@@ -1611,6 +1597,158 @@ def mapping_flows(dev, card, drive, err):
         raise AssertionError("two-view: the card's corner set differs from the CPU's")
     print(f"  corner set on the card == on the CPU ({a.shape[0]} valid corners)")
     print(f"== phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# phase 8: the drills of stepth_tpu_torch.parallel.drill, two worker
+# processes on the one card (gloo, transfers staged through the host)
+DRILL_TIMEOUT = 600  # seconds a worker pair may take
+DRILL_REPS = 3  # timed runs of each distributed call against one process
+DRILL_DIE_AT = 5  # 8d: rank 1 exits after the first checkpointed segment
+# launches per frame and rank: 8a production on 2 of 4 shards, 8b sgm-pallas
+# 4 directions on 2 of 4 shards (K10: ↓y and ↑y on each)
+DRILL_LAUNCHES = {
+    "hierarchical": {"K1": 2, "K2": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2},
+    "sgm-pallas": {"K6": 2, "K7": 4, "K10": 4, "K9": 2, "K4": 2, "K5": 2, "K3": 2},
+}
+
+
+def drill_pair(modes, out, *extra, expect=(0, 0), env=None):
+    """Run the two workers of a drill against a ``TCPStore`` served here;
+    raise unless they exit with ``expect``. Returns their outputs and each
+    rank's JSON lines by mode."""
+    import datetime
+
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = dist.TCPStore("localhost", 0, None, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=DRILL_TIMEOUT))
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "stepth_tpu_torch.parallel.drill", str(r), "2",
+         str(store.port), modes, "--device", "cuda", "--out", out, *extra],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    deadline = time.monotonic() + DRILL_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        print("\n".join(f"    [worker {r}] {line}" for line in o.splitlines()
+                        if not line.startswith("{") and "c10d" not in line))
+        if p.returncode != expect[r]:
+            raise AssertionError(f"drill {modes}: rank {r} exited {p.returncode}, want "
+                                 f"{expect[r]}:\n{o[-4000:]}")
+    numbers = [{x["drill"]: x for x in map(json.loads, (ln for ln in o.splitlines()
+                                                         if ln.startswith("{")))}
+               for o in outs]
+    return outs, numbers
+
+
+def multiprocess_drills(card):
+    """Phase 8: the multi-process layer on the card, two drill workers
+    (``python -m stepth_tpu_torch.parallel.drill``) sharing it under gloo.
+    a.-c. in one worker pair: production ``hierarchical-pallas`` at
+    1024×1920 on ``global_mesh(data=1, tile=4)`` (2 slots a rank), the
+    exact ``sgm-pallas`` relay at 1088×1920 on ``tile=4`` (a shard's rows
+    must be a multiple of 8) and BA at the mapping size on ``data=8``; each
+    rank's result equal bit for bit to the same call on a one-process mesh
+    of the same shape and to the other rank's, every kernel call of a.
+    and b. equal to its plain version, the median disparity, the launches
+    per frame and rank, the bytes that crossed the process boundary, and
+    the distributed call timed against the one-process one in turns. d.
+    the resumable drill: rank 1 dies after the first checkpointed segment,
+    ``supervisor.supervise`` relaunches rank 0 alone on ``auto_mesh(n_obs,
+    devices=["cuda:0"] * 4)``, and the resumed cost must meet phase 7a's
+    limit. e. the failure drill: the seconds from the peer's death to its
+    detection. Returns each kernel's launches in a. and b., by rank."""
+    from stepth_tpu_torch.utils import supervisor
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        print(f"== 8a-c. two processes on one card: hierarchical-pallas production 1024x1920 "
+              f"tile=4, sgm-pallas exact 1088x1920 tile=4, BA 4096 points x 8 cameras "
+              f"data=8; card: {card}")
+        modes = "hierarchical,sgm-pallas,ba"
+        _, nums = drill_pair(modes, out, "--size", "full", "--check", "--paired", "--reps",
+                             str(DRILL_REPS))
+        launches = [{} for _ in range(2)]
+        for mode in modes.split(","):
+            results = [np.load(os.path.join(out, f"{mode}_r{r}.npz")) for r in range(2)]
+            for name in results[0].files:
+                a, b = results[0][name], results[1][name]
+                same = a.shape == b.shape and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                if not same:
+                    raise AssertionError(f"drill {mode}: the ranks' {name} differ")
+            n0 = nums[0][mode]
+            if mode == "ba":
+                print(f"  8c. BA {n0['cams']} cameras x {n0['points']} points, "
+                      f"{n0['lm_iters']} LM iterations (cg {n0['cg_iters']}): cost "
+                      f"{n0['cost0']:.6f} -> {n0['cost']:.6f}; both ranks equal to each other "
+                      f"and to the one-process 8-shard solve bit for bit; "
+                      f"{n0['lm_iters_per_s_2p']:.4f} LM iterations/s on 2 processes against "
+                      f"{n0['lm_iters_per_s_1p']:.4f} on 1 (median of {DRILL_REPS}, in turns); "
+                      f"bytes sent a solve: {nums[0][mode]['bytes_per_solve']} + "
+                      f"{nums[1][mode]['bytes_per_solve']}; card: {card}")
+                continue
+            for r in range(2):
+                got = {k: v for k, v in nums[r][mode]["launches"].items() if v}
+                if got != DRILL_LAUNCHES[mode]:
+                    raise AssertionError(f"drill {mode}: rank {r} launches {got} != "
+                                         f"{DRILL_LAUNCHES[mode]}")
+                for k, v in got.items():
+                    launches[r][k] = launches[r].get(k, 0) + v
+                checked = nums[r][mode]["paired"]
+                if any(checked.get(k, [0])[0] < v for k, v in DRILL_LAUNCHES[mode].items()):
+                    raise AssertionError(f"drill {mode}: rank {r} checked {checked}")
+            tag = "8a" if mode == "hierarchical" else "8b"
+            print(f"  {tag}. {mode} {tuple(n0['shape'])} on a {n0['mesh'][0]}x{n0['mesh'][1]} "
+                  f"mesh over 2 processes: median disparity {n0['median_disparity']:.4f}; "
+                  f"both ranks equal to the one-process mesh and to each other bit for bit; "
+                  f"every kernel call equal to its plain version ("
+                  + ", ".join(f"{k} {v[0]}x" for k, v in nums[0][mode]["paired"].items())
+                  + " on rank 0); launches per frame and rank "
+                  f"{DRILL_LAUNCHES[mode]}; bytes sent a frame {nums[0][mode]['bytes_per_frame']}"
+                  f" + {nums[1][mode]['bytes_per_frame']}; {n0['ms_2p']:.4f} ms/frame on 2 "
+                  f"processes against {n0['ms_1p']:.4f} on 1 (median of {DRILL_REPS}, in turns, "
+                  f"read on rank 0; runs {[round(x, 4) for x in n0['ms_2p_runs']]} / "
+                  f"{[round(x, 4) for x in n0['ms_1p_runs']]}); card: {card}")
+
+        print(f"== 8d. the resumable drill: rank 1 dies after iteration {DRILL_DIE_AT}, the "
+              f"survivor resumes alone; card: {card}")
+        outs, _ = drill_pair("resumable", out, "--size", "full", expect=(1, 43),
+                             env=dict(os.environ, STEPTH_DIE_AT=str(DRILL_DIE_AT)))
+        if "resumable drill OK" in outs[0]:
+            raise AssertionError("resumable: rank 0 finished after its peer died")
+        logs = []
+        argv = [sys.executable, "-m", "stepth_tpu_torch.parallel.drill", "0", "1", "0",
+                "resumable", "--device", "cuda", "--size", "full", "--out", out]
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        rc = supervisor.supervise(lambda attempt: argv, max_restarts=1, backoff_s=0.1, env=env,
+                                  attempt_timeout_s=DRILL_TIMEOUT, log=logs.append)
+        if rc != 0:
+            raise AssertionError(f"resumable: the relaunched survivor exited {rc}: {logs}")
+        final = np.load(os.path.join(out, "final_p0.npz"))
+        limit = 1.5 * 2 * MAP_SIGMA ** 2
+        if not float(final["cost"]) < limit:
+            raise AssertionError(f"resumable: cost {float(final['cost'])} >= {limit}")
+        print(f"  resumed on auto_mesh over 4 slots of cuda:0: cost {float(final['cost']):.6f} "
+              f"(limit {limit:.4f})")
+
+        print(f"== 8e. the failure drill: rank 1 dies without goodbye; card: {card}")
+        _, nums = drill_pair("failure", out, expect=(0, 42))
+        print(f"  rank 0 detected the death {nums[0]['failure']['since_death_s']:.4f} s after it "
+              f"(barrier raised {nums[0]['failure']['detect_s']:.4f} s after it began)")
+    print(f"== phase 8 took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2700,6 +2838,9 @@ def main() -> int:
     # two-view flow
     mapping_launches = mapping_flows(dev, smi[0], drive, err)
 
+    # 8. the multi-process layer: the drills on two processes sharing the card
+    drill_launches = multiprocess_drills(smi[0])
+
     # bounds at the shapes each kernel was timed at: K1-K5 on the production
     # path (K1 and K2 census, planes in the bytes; K2 counts the candidates
     # its plans ran), K6-K10 on sgm-pallas at 1080p, D=64 (K7 per launch,
@@ -2751,7 +2892,8 @@ def main() -> int:
          "launches": origin[n][1][n], "path": origin[n][0], "max_abs_err": errs[n],
          "ms": times[n][0], "plain_ms": times[n][1], "bound_ms": bounds[n][0],
          "bound_by": bounds[n][1], "library_ms": library_ms.get(n), "device_ms": device[n],
-         "mapping_launches": mapping_launches[n]}
+         "mapping_launches": mapping_launches[n],
+         "drill_launches": [drill_launches[r].get(n, 0) for r in range(2)]}
         for n, k in KERNELS.items()
     ]}
     extra = {

@@ -16,10 +16,19 @@ reprojection residuals, each step solved by **implicit-Schur CG**:
 * **Sharding** (:func:`solve_sharded`): observations split over the mesh's
   ``data`` shards, in order; poses and points are replicated, and every
   segment sum and cost is computed per shard and summed on the mesh's first
-  device in shard order (the reference's ``psum``).
+  device in shard order (the reference's ``psum``). Over a mesh that spans
+  processes each process computes the partials of the shards it owns; an
+  ordered all-gather (``distributed.all_gather_ordered``) hands every
+  process every shard's partial, and each sums them in shard order on its
+  first device. So every process holds the same replicated state, equal
+  bit for bit to the one-process solve on a mesh of the same shape: the
+  LM accept test then decides alike everywhere, and every process runs the
+  same sequence of collectives.
 
-The LM and CG loops are Python loops with no host synchronisation inside:
-the accept test, λ and the state stay tensors combined by ``torch.where``.
+The LM and CG loops are Python loops with no host synchronisation inside
+(within one process): the accept test, λ and the state stay tensors
+combined by ``torch.where``. Across processes under gloo every sum of
+partials is a host round trip (the partials staged through host memory).
 Every reduction is deterministic (see :func:`_segsum`), so a solve gives
 the same bits on every run on the same device, and a solve split into
 segments continues bit for bit (:mod:`stepth_tpu_torch.fusion.resumable`).
@@ -35,6 +44,7 @@ import torch
 
 from stepth_tpu_torch.fusion import geometry
 from stepth_tpu_torch.match.dense import to_tensor
+from stepth_tpu_torch.parallel import distributed
 
 LOSSES = ("l2", "huber", "cauchy")
 
@@ -213,38 +223,48 @@ class _Shard(NamedTuple):
     pts: _Segments
 
 
-def _allsum(parts: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
+def _allsum(parts: Sequence[torch.Tensor], dev: torch.device,
+            owners: Optional[Sequence[int]] = None, like=None) -> torch.Tensor:
     """The per-shard partials summed on ``dev`` in shard order (the
-    reference's ``psum``; one shard: the partial itself)."""
+    reference's ``psum``; one shard: the partial itself). ``owners`` (the
+    process of each shard; None: all this one's) makes ``parts`` this
+    process's shards only (possibly none), each of ``like``'s ``(shape,
+    dtype)``, gathered from every process first."""
+    if owners is not None:
+        parts = distributed.all_gather_ordered(parts, owners, dev, like)
     out = parts[0].to(dev)
     for p in parts[1:]:
         out = out + p.to(dev)
     return out
 
 
-def _schur_system(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor):
+def _schur_system(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor, dims,
+                  owners: Optional[Sequence[int]] = None):
     """The implicit reduced camera system over ``shards`` (with their
-    ``blocks`` ``(r, A, B)``): ``(S_apply, precond, b, back_substitute)``,
+    ``blocks`` ``(r, A, B)``; ``dims``: the cameras, the points and the
+    state's dtype; ``owners`` as in :func:`_allsum`):
+    ``(S_apply, precond, b, back_substitute)``,
     where ``S_apply(x)`` applies S = U − W V⁻¹ Wᵀ without forming it,
     ``precond`` is the block-Jacobi diag(U_d)⁻¹, ``b`` the Schur right-hand
     side and ``back_substitute(dpose)`` recovers Δpoints. Everything
     replicated lives on ``lm_lambda``'s device."""
     dev = lm_lambda.device
-    C = shards[0].problem.poses.shape[0]
-    Pn = shards[0].problem.points.shape[0]
+    C, Pn, dtype = dims
 
-    def segsum(parts, which):
+    def segsum(parts, which, width):  # [N, width] per shard → [C or P, width]
+        num = C if which == "cams" else Pn
         return _allsum([_segsum(x, getattr(s, which).idx, getattr(s, which).num,
-                                getattr(s, which)) for x, s in zip(parts, shards)], dev)
+                                getattr(s, which)) for x, s in zip(parts, shards)], dev,
+                       owners, ((num, width), dtype))
 
     def local(x):  # a replicated value on each shard's device
         return [x.to(s.problem.uv.device) for s in shards]
 
     # Hessian blocks + gradients: one segment sum per side, [N,42]→C, [N,12]→P
     cam_red = segsum([torch.cat([_outer(A, A).reshape(-1, 36), _matvec_t(A, r)], 1)
-                      for r, A, _ in blocks], "cams")
+                      for r, A, _ in blocks], "cams", 42)
     pt_red = segsum([torch.cat([_outer(B, B).reshape(-1, 9), _matvec_t(B, r)], 1)
-                     for r, _, B in blocks], "pts")
+                     for r, _, B in blocks], "pts", 12)
     U = cam_red[:, :36].reshape(C, 6, 6)
     g_c = cam_red[:, 36:]
     V = pt_red[:, :9].reshape(Pn, 3, 3)
@@ -259,15 +279,15 @@ def _schur_system(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor):
     # Schur RHS: b = -g_c + W V⁻¹ g_p
     Vg = _matvec(V_inv, g_p)
     b = -g_c + segsum([_matvec(w, v[s.problem.pt_idx]) for w, v, s in zip(W, local(Vg), shards)],
-                      "cams")
+                      "cams", 6)
 
     def S_apply(x):  # x [C,6] → S x [C,6]
         Ux = _matvec(U_d, x)
         Wx_p = segsum([_matvec_t(w, v[s.problem.cam_idx])
-                       for w, v, s in zip(W, local(x), shards)], "pts")
+                       for w, v, s in zip(W, local(x), shards)], "pts", 3)
         z = _matvec(V_inv, Wx_p)
         WVz = segsum([_matvec(w, v[s.problem.pt_idx]) for w, v, s in zip(W, local(z), shards)],
-                     "cams")
+                     "cams", 6)
         return Ux - WVz
 
     M_inv = _inv_spd(U_d)
@@ -277,7 +297,7 @@ def _schur_system(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor):
 
     def back_substitute(dpose):  # Δp = V⁻¹(−g_p − Wᵀ Δc)
         Wt_dc = segsum([_matvec_t(w, v[s.problem.cam_idx])
-                        for w, v, s in zip(W, local(dpose), shards)], "pts")
+                        for w, v, s in zip(W, local(dpose), shards)], "pts", 3)
         return _matvec(V_inv, -g_p - Wt_dc)
 
     return S_apply, precond, b, back_substitute
@@ -313,10 +333,12 @@ def _cg(S_apply: Callable, precond: Callable, b: torch.Tensor, iters: int,
     return x
 
 
-def _schur_solve(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor, cg_iters: int):
+def _schur_solve(shards: Sequence[_Shard], blocks, lm_lambda: torch.Tensor, cg_iters: int,
+                 dims, owners: Optional[Sequence[int]] = None):
     """One LM step by implicit-Schur CG (block-Jacobi preconditioned):
     ``(dpose [C,6], dpoint [P,3])``."""
-    S_apply, precond, b, back_substitute = _schur_system(shards, blocks, lm_lambda)
+    S_apply, precond, b, back_substitute = _schur_system(shards, blocks, lm_lambda, dims,
+                                                         owners)
     dpose = _cg(S_apply, precond, b, cg_iters)
     return dpose, back_substitute(dpose)
 
@@ -342,7 +364,8 @@ def cg_convergence(problem: BAProblem, cg_iters: int = 30, lm_lambda0: float = 1
     shard = _shard(problem)
     blocks = _blocks(problem, problem.poses, problem.points, fix_first_cam)
     lm = torch.tensor(lm_lambda0, dtype=torch.float32, device=problem.poses.device)
-    S_apply, precond, b, _ = _schur_system([shard], [blocks], lm)
+    dims = (problem.poses.shape[0], problem.points.shape[0], problem.poses.dtype)
+    S_apply, precond, b, _ = _schur_system([shard], [blocks], lm, dims)
     if not use_precond:
         precond = lambda x: x  # noqa: E731
     hist: List[torch.Tensor] = []
@@ -393,22 +416,29 @@ def _cost(problem: BAProblem, poses, points, loss: str = "l2", delta: float = 4.
 
 
 def _lm(shards: Sequence[_Shard], iters: int, cg_iters: int, lm_lambda0: float,
-        fix_first_cam: bool, loss: str, delta: float) -> BAState:
-    """The LM loop over ``shards`` (one: the single-device solve)."""
+        fix_first_cam: bool, loss: str, delta: float,
+        owners: Optional[Sequence[int]] = None, init=None) -> BAState:
+    """The LM loop over ``shards`` (one: the single-device solve; with
+    ``owners``, this process's shards of a solve across processes, possibly
+    none) from ``init``, the starting poses and points on the device of the
+    replicated state (default: the first shard's)."""
     if loss not in LOSSES:
         raise ValueError(f"loss must be 'l2', 'huber' or 'cauchy', got {loss!r}")
-    first = shards[0].problem
-    dev = first.poses.device
-    wsum = torch.clamp(_allsum([s.problem.weight.sum() for s in shards], dev), min=1.0)
+    poses, points = (shards[0].problem.poses, shards[0].problem.points) if init is None else init
+    dev = poses.device
+    dims = (poses.shape[0], points.shape[0], poses.dtype)
+    scalar = ((), poses.dtype)
+    wsum = torch.clamp(_allsum([s.problem.weight.sum() for s in shards], dev, owners, scalar),
+                       min=1.0)
 
     def cost_of(ps, xs):
         return _allsum([_cost_sum(s.problem, p, x, loss, delta)
-                        for s, p, x in zip(shards, local(ps), local(xs))], dev) / wsum
+                        for s, p, x in zip(shards, local(ps), local(xs))], dev, owners,
+                       scalar) / wsum
 
     def local(x):
         return [x.to(s.problem.uv.device) for s in shards]
 
-    poses, points = first.poses, first.points
     lm = torch.tensor(lm_lambda0, dtype=torch.float32, device=dev)
     cost = cost_of(poses, points)
     for _ in range(iters):
@@ -416,7 +446,7 @@ def _lm(shards: Sequence[_Shard], iters: int, cg_iters: int, lm_lambda0: float,
         for s, p, x in zip(shards, local(poses), local(points)):
             eff.append(s._replace(problem=_irls_problem(s.problem, p, x, loss, delta)))
             blocks.append(_blocks(eff[-1].problem, p, x, fix_first_cam))
-        dpose, dpoint = _schur_solve(eff, blocks, lm, cg_iters)
+        dpose, dpoint = _schur_solve(eff, blocks, lm, cg_iters, dims, owners)
         if fix_first_cam:
             dpose = torch.cat([torch.zeros_like(dpose[:1]), dpose[1:]])
         new_poses = poses + dpose
@@ -443,16 +473,19 @@ def solve(problem: BAProblem, iters: int = 10, cg_iters: int = 10, lm_lambda0: f
     return _lm([_shard(problem)], iters, cg_iters, lm_lambda0, fix_first_cam, loss, loss_delta)
 
 
-def _split_observations(problem: BAProblem, devices: Sequence) -> List[BAProblem]:
+def _split_observations(problem: BAProblem, devices: Sequence,
+                        keep: Optional[Sequence[int]] = None) -> List[BAProblem]:
     """``problem`` with its observations split in order into
     ``len(devices)`` equal shards, shard ``i`` (with copies of the poses,
-    points and intrinsics) on ``devices[i]``."""
+    points and intrinsics) on ``devices[i]``; only the shards in ``keep``
+    (default: all) are made, and the others' observations are never read."""
     n, k = problem.uv.shape[0], len(devices)
     if n % k != 0:
         raise ValueError(f"N={n} observations not divisible by data axis {k}")
     step = n // k
     out = []
-    for i, d in enumerate(devices):
+    for i in range(k) if keep is None else keep:
+        d = devices[i]
         obs = slice(i * step, (i + 1) * step)
         out.append(BAProblem(
             poses=problem.poses.to(d), points=problem.points.to(d),
@@ -470,7 +503,18 @@ def solve_sharded(problem: BAProblem, mesh, iters: int = 10, cg_iters: int = 10,
     the first device of row ``i``); poses and points are replicated, and
     every reduction is summed on ``mesh.first`` in shard order. The same
     math as :func:`solve`, robust losses included (IRLS weights are
-    per-observation and shard-local); the result lies on ``mesh.first``."""
-    shards = _split_observations(problem, [row[0] for row in mesh.devices])
+    per-observation and shard-local); the result lies on ``mesh.first``.
+
+    Over a mesh that spans processes every process passes the whole
+    problem; it reads only the observations of the shards it owns (none,
+    when it owns only slots of the ``tile`` axis, whose replicas of the
+    state it then holds), sums the partials of all shards in shard order
+    (see the module docstring) and returns the same state as every other
+    process, on its own first slot."""
+    nd = mesh.shape["data"]
+    owners = [mesh.ranks[i][0] for i in range(nd)] if mesh.spans_processes else None
+    keep = [i for i in range(nd) if mesh.is_local((i, 0))]
+    shards = _split_observations(problem, [row[0] for row in mesh.devices], keep)
+    init = problem.poses.to(mesh.first), problem.points.to(mesh.first)
     return _lm([_shard(p) for p in shards], iters, cg_iters, lm_lambda0, fix_first_cam, loss,
-               loss_delta)
+               loss_delta, owners, init)

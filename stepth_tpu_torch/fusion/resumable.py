@@ -10,7 +10,8 @@
 * :func:`auto_mesh` — a data-parallel mesh over the devices there are now.
   BA state is replicated (observations shard, poses and points are summed
   on the first device), so any subset of devices can continue from the
-  checkpoint.
+  checkpoint: after a peer process is lost, the survivor is relaunched on
+  its own devices (the shrunken mesh) and resumes from its checkpoint.
 
 With :func:`stepth_tpu_torch.utils.supervisor.supervise` this closes the
 loop: the process dies, the supervisor relaunches it, the checkpoint
@@ -98,7 +99,11 @@ def solve_resumable(
     order of the per-shard sums changes with the shard count).
 
     ``mesh=None`` runs :func:`ba.solve`; pass :func:`auto_mesh`'s result to
-    shard over the devices there are. ``on_segment(done_iters, state)`` is a
+    shard over the devices there are, or ``distributed.global_mesh``'s to
+    shard over several processes. Over a mesh that spans processes every
+    process writes its own checkpoint, so give each its own ``ckpt_path``:
+    they hold the same replicated state, and a survivor resumes from its
+    own. ``on_segment(done_iters, state)`` is a
     progress hook; what it raises propagates after the checkpoint is
     written, so a failing hook never loses progress.
     """

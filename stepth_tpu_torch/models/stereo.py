@@ -137,8 +137,10 @@ class StereoModel:
 
     def sharded(self, mesh):
         """A callable running this model row-tile-sharded over ``mesh``
-        (``parallel.mesh.make_mesh``) on a pair of tensors or arrays; the
-        result lands on the mesh's first device. ``sgm-pallas`` takes the
+        (``parallel.mesh.make_mesh``, or ``parallel.distributed.global_mesh``
+        for a mesh over several processes, each of which makes the same
+        call) on a pair of tensors or arrays; the whole result lands on every
+        process's first slot of the mesh (``mesh.first``). ``sgm-pallas`` takes the
         ``exact``/``warmup``/``halo`` keywords of
         ``match_pair_sgm_pallas_sharded``. As in the reference, the
         hierarchical backends run without ``lr_check``: call

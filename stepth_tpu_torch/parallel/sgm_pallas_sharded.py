@@ -8,7 +8,10 @@ halo (``g_row0``/``g_h`` mask the rows outside the image), then:
   columns); each vertical and diagonal direction is one K10 launch per
   shard in owner order — shards 0…n−1 for ↓y, ↘, ↙ and n−1…0 for ↑y, ↗, ↖
   — each seeded with the upstream shard's final carry (f32 ``[D, W]``),
-  which then moves to the next owner's device. Only the owner runs a round:
+  which then moves to the next owner's device (through
+  ``distributed.transfer`` when that owner is another process: a process
+  scans only the shards it owns, but sends or receives at every hop that
+  ends at one of them). Only the owner runs a round:
   the reference's SPMD rounds, where non-owners scan a garbage seed and are
   masked out, are the same arithmetic. The directions are summed in the
   unsharded order, so the output equals the unsharded ``sgm-pallas``
@@ -23,7 +26,8 @@ halo (``g_row0``/``g_h`` mask the rows outside the image), then:
 
 Then each shard runs K9 (with K4 under ``cfg.lr_threshold``) and K5 on its
 own rows, and K3 over a one-row disparity halo. ``plain=True`` runs every
-kernel's plain version instead. Results land on the mesh's first device.
+kernel's plain version instead. Results land on the mesh's first device (on
+every process, for a mesh that spans processes).
 """
 
 from __future__ import annotations
@@ -36,47 +40,55 @@ from stepth_tpu_torch.config import MatchConfig, SGMConfig
 from stepth_tpu_torch.match import dense, fused_dense, fused_sgm
 from stepth_tpu_torch.match import sgm as sgm_mod
 from stepth_tpu_torch.match.fused_refine import _round_up
-from stepth_tpu_torch.parallel.mesh import Mesh
+from stepth_tpu_torch.parallel.mesh import Mesh, Row
+from stepth_tpu_torch.parallel.sgm_sharded import relay_carry
 from stepth_tpu_torch.parallel.sharded import (
-    _check_halo, _gray_blocks, _median_blocks, _mesh, _result, _with_halo, required_halo,
+    _check_halo, _gray_blocks, _map, _median_blocks, _mesh, _result, _unzip, _with_halo,
+    required_halo,
 )
 
 
-def _relay_dir(path, vols, accs, *, reverse: bool, shift: int, p1: float, p2: float):
-    """One relayed direction: a K10 launch per shard in owner order, each
-    onto its shard's accumulator, the final carry moved to the next owner."""
-    carry = None
+def _relay_dir(path, row: Row, vols, accs, *, reverse: bool, shift: int, p1: float,
+               p2: float):
+    """One relayed direction: a K10 launch per shard this process owns, in
+    owner order, each onto its shard's accumulator, the final carry (f32
+    ``[D, W]``) moved to the next owner."""
+    carry, prev = None, None
     for i in (range(len(vols) - 1, -1, -1) if reverse else range(len(vols))):
-        if carry is not None:
-            carry = carry.to(vols[i].device, non_blocking=True)
-        accs[i], carry = path.scan_carry(vols[i], accs[i], carry, p1, p2, reverse=reverse,
-                                         shift=shift)
+        v = vols[i]
+        if prev is not None:
+            carry = relay_carry(row, carry, prev, i, None if v is None else
+                                (v.shape[0], v.shape[2]), None if v is None else v.device)
+        if v is not None:
+            accs[i], carry = path.scan_carry(v, accs[i], carry, p1, p2, reverse=reverse,
+                                             shift=shift)
+        prev = i
 
 
-def _exact_agg(path, vols, sgm: SGMConfig, p1: float, p2: float):
+def _exact_agg(path, row: Row, vols, sgm: SGMConfig, p1: float, p2: float):
     """The direction sum of exact mode, in the unsharded order: the
     horizontals shard-local, every other direction relayed."""
     accs = [None] * len(vols)
     for axis, reverse, shift in fused_sgm.directions(sgm.directions):
         if axis == 2:
-            accs = [path.scan(v, a, p1, p2, axis=2, reverse=reverse, shift=shift)
+            accs = [None if v is None else path.scan(v, a, p1, p2, axis=2, reverse=reverse,
+                                                     shift=shift)
                     for v, a in zip(vols, accs)]
         else:
-            _relay_dir(path, vols, accs, reverse=reverse, shift=shift, p1=p1, p2=p2)
+            _relay_dir(path, row, vols, accs, reverse=reverse, shift=shift, p1=p1, p2=p2)
     return accs
 
 
-def _wta_epilogue(path, aggs, cfg: MatchConfig):
+def _wta_epilogue(path, row: Row, aggs, cfg: MatchConfig):
     """WTA, uniqueness and LR (K9, K4), the fill (K5) on each shard's rows,
     then the median (K3) over a one-row disparity halo."""
-    disps, valids, cbests = [], [], []
-    for agg in aggs:
+    def wta(agg):
         disp, _, cbest, valid_f = path.wta(agg, cfg)
         valid = valid_f > 0.5
-        disps.append(path.fill(disp, valid))
-        valids.append(valid)
-        cbests.append(cbest)
-    return _median_blocks(path.median, disps), valids, cbests
+        return path.fill(disp, valid), valid, cbest
+
+    disps, valids, cbests = _unzip(_map(wta, aggs), 3)
+    return _median_blocks(path.median, disps, row), valids, cbests
 
 
 def match_pair_sgm_pallas_sharded(
@@ -101,20 +113,23 @@ def match_pair_sgm_pallas_sharded(
     fused_dense._check_cfg(cfg)
     fused_sgm.directions(sgm.directions)  # raises on a bad count
     dtype = fused_sgm.volume_dtype(sgm)
-    devs = mesh.devices[0]
+    row = mesh.row(0)
     h = left.shape[0]
-    if h % len(devs) != 0:
-        raise ValueError(f"H={h} not divisible by tile axis {len(devs)}")
-    th = h // len(devs)
+    if h % len(row.devices) != 0:
+        raise ValueError(f"H={h} not divisible by tile axis {len(row.devices)}")
+    th = h // len(row.devices)
     if th % 8 != 0:
         raise ValueError(f"tile height {th} must be a multiple of 8")
     wu = 0 if exact else _round_up(int(warmup), 8)
     _check_halo(th, halo + wu, "halo+warmup")
-    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
+    lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
     ext, rows = halo + wu, th + 2 * wu
     vols = []
-    for i, (lg, rg) in enumerate(zip(_with_halo(lgs, ext, "replicate"),
-                                     _with_halo(rgs, ext, "replicate"))):
+    for i, (lg, rg) in enumerate(zip(_with_halo(lgs, ext, "replicate", row),
+                                     _with_halo(rgs, ext, "replicate", row))):
+        if lg is None:
+            vols.append(None)
+            continue
         vol = path.volume(lg, rg, cfg, dtype, i * th - ext, h)[:, halo:halo + rows]
         if wu:
             # K6's global row mask already zeroes out-of-image rows' box
@@ -125,8 +140,8 @@ def match_pair_sgm_pallas_sharded(
         vols.append(vol.contiguous())
     p1, p2 = sgm_mod.penalties(cfg, sgm)
     if exact:
-        aggs = _exact_agg(path, [v.to(torch.float32) for v in vols], sgm, p1, p2)
+        aggs = _exact_agg(path, row, _map(lambda v: v.to(torch.float32), vols), sgm, p1, p2)
     else:
-        aggs = [fused_sgm._aggregate(path.scan, v, sgm, p1, p2)[:, wu:wu + th].contiguous()
-                for v in vols]
-    return _result(mesh, *_wta_epilogue(path, aggs, cfg))
+        aggs = _map(lambda v: fused_sgm._aggregate(path.scan, v, sgm, p1, p2)
+                    [:, wu:wu + th].contiguous(), vols)
+    return _result(mesh, row, *_wta_epilogue(path, row, aggs, cfg))

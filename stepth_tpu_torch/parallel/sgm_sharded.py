@@ -9,7 +9,8 @@ cut the vertical and diagonal chains at every seam. Two modes:
   (:func:`_relay_dir`): the owner shard — 0…n−1 for a downward scan, n−1…0
   for an upward one — scans its rows from the upstream shard's final carry
   (``sgm.scan_dir_from``), which is the arithmetic the unsharded scan runs
-  on those rows, and hands its own final carry to the next owner's device.
+  on those rows, and hands its own final carry to the next owner's device
+  (through ``distributed.transfer`` when that owner is another process).
   Equal to the unsharded ``sgm`` backend bit for bit on integer inputs.
 * ``exact=False``: each shard extends its rows by ``warmup`` halo rows and
   scans every direction locally. Approximate at interior seams; true image
@@ -25,63 +26,91 @@ import torch
 from stepth_tpu_torch.config import MatchConfig, SGMConfig
 from stepth_tpu_torch.match import dense
 from stepth_tpu_torch.match import sgm as sgm_mod
-from stepth_tpu_torch.parallel.mesh import Mesh
+from stepth_tpu_torch.parallel import distributed
+from stepth_tpu_torch.parallel.mesh import Mesh, Row
 from stepth_tpu_torch.parallel.sharded import (
-    _check_halo, _gray_blocks, _median_blocks, _mesh, _result, _with_halo, required_halo,
+    _check_halo, _gray_blocks, _map, _median_blocks, _mesh, _result, _unzip, _with_halo,
+    required_halo,
 )
 
 
-def _relay_dir(vols, *, reverse: bool, shift: int, p1: float, p2: float):
+def relay_carry(row: Row, carry, prev: int, i: int, shape, device):
+    """The carry of a relay chain, leaving slot ``prev`` for slot ``i``:
+    on ``i``'s device when this process owns ``i`` (received from ``prev``'s
+    process if that is another), else None (sent on if this process owns
+    ``prev``). Every process walks the same chain, so each hop's two ends
+    meet."""
+    src, dst = row.ranks[prev], row.ranks[i]
+    if src == dst:
+        return carry.to(device, non_blocking=True) if row.is_local(i) else None
+    if row.is_local(prev):
+        distributed.transfer([distributed.Send(carry, dst, i)], [])
+    elif row.is_local(i):
+        return distributed.transfer([], [distributed.Recv(shape, torch.float32, device, src,
+                                                          i)])[0]
+    return None
+
+
+def _relay_dir(row: Row, vols, *, reverse: bool, shift: int, p1: float, p2: float):
     """One vertical/diagonal direction over the row-sharded volumes ``vols``
-    ([th, W, D] each), the carry relayed shard to shard in owner order.
-    Returns the per-shard path costs."""
+    ([th, W, D] each; None at another process's slot), the carry relayed
+    shard to shard in owner order. Returns the per-shard path costs."""
     n = len(vols)
     outs = [None] * n
-    carry = None
+    carry, prev = None, None
     for i in (range(n - 1, -1, -1) if reverse else range(n)):
-        if carry is None:
-            carry = torch.zeros(vols[i].shape[1:], dtype=torch.float32, device=vols[i].device)
-        carry, outs[i] = sgm_mod.scan_dir_from(
-            vols[i], carry.to(vols[i].device, non_blocking=True), reverse=reverse,
-            shift=shift, p1=p1, p2=p2)
+        v = vols[i]
+        shape = None if v is None else v.shape[1:]
+        if prev is not None:
+            carry = relay_carry(row, carry, prev, i, shape, None if v is None else v.device)
+        if v is not None:
+            if prev is None:
+                carry = torch.zeros(shape, dtype=torch.float32, device=v.device)
+            carry, outs[i] = sgm_mod.scan_dir_from(v, carry, reverse=reverse, shift=shift,
+                                                   p1=p1, p2=p2)
+        prev = i
     return outs
 
 
-def _aggregate_sharded(vols, sgm: SGMConfig, p1: float, p2: float, *, exact: bool):
+def _aggregate_sharded(row: Row, vols, sgm: SGMConfig, p1: float, p2: float, *, exact: bool):
     """Direction sums over the per-shard volumes ``vols`` ([S, W, D]; S is
     th in exact mode, th + 2·warmup in warm-up mode), term for term in
     ``sgm.aggregate``'s order."""
     def relay(reverse, shift):
         if exact:
-            return _relay_dir(vols, reverse=reverse, shift=shift, p1=p1, p2=p2)
-        return [sgm_mod._aggregate_dir(v, reverse, shift, p1, p2) for v in vols]
+            return _relay_dir(row, vols, reverse=reverse, shift=shift, p1=p1, p2=p2)
+        return _map(lambda v: sgm_mod._aggregate_dir(v, reverse, shift, p1, p2), vols)
 
-    outs = []
-    for v in vols:
+    def horizontal(v):
         cols = v.transpose(0, 1)  # [W, S, D]: the horizontal scans, row-local
         out = sgm_mod._aggregate_dir(cols, False, 0, p1, p2)  # →x
         out = out + sgm_mod._aggregate_dir(cols, True, 0, p1, p2)  # ←x
-        outs.append(out.transpose(0, 1))
+        return out.transpose(0, 1)
+
+    outs = _map(horizontal, vols)
     dirs = []
     if sgm.directions == 8:
         dirs += [(False, +1), (False, -1), (True, +1), (True, -1)]  # ↘ ↙ ↗ ↖
     if sgm.directions >= 4:
         dirs += [(False, 0), (True, 0)]  # ↓y, ↑y
     for reverse, shift in dirs:
-        outs = [o + l for o, l in zip(outs, relay(reverse, shift))]
+        outs = [None if o is None else o + l for o, l in zip(outs, relay(reverse, shift))]
     return outs
 
 
-def _sgm_tiles(lgs, rgs, *, cfg: MatchConfig, sgm: SGMConfig, halo: int, wu: int,
+def _sgm_tiles(row: Row, lgs, rgs, *, cfg: MatchConfig, sgm: SGMConfig, halo: int, wu: int,
                h_total: int, exact: bool):
     """Per-shard SGM on gray row blocks (the reference's ``_sgm_tile``):
     ``halo`` rows cover the cost window, ``wu`` more (warm-up mode only) warm
     the scans. Returns per-shard disparity, valid and cost blocks."""
-    th = lgs[0].shape[0]
+    th = h_total // len(lgs)
     ext = halo + wu
     vols = []
-    for i, (lg, rg) in enumerate(zip(_with_halo(lgs, ext, "replicate"),
-                                     _with_halo(rgs, ext, "replicate"))):
+    for i, (lg, rg) in enumerate(zip(_with_halo(lgs, ext, "replicate", row),
+                                     _with_halo(rgs, ext, "replicate", row))):
+        if lg is None:
+            vols.append(None)
+            continue
         vol = dense.cost_volume(lg, rg, cfg)  # [th + 2·ext, W, D]
         # zero cost outside the image: box sums match the unsharded clipping,
         # and warm-up scans stay zero across out-of-image rows
@@ -94,19 +123,19 @@ def _sgm_tiles(lgs, rgs, *, cfg: MatchConfig, sgm: SGMConfig, halo: int, wu: int
             gidx2 = i * th - wu + torch.arange(th + 2 * wu, device=lg.device)
             agg = agg * ((gidx2 >= 0) & (gidx2 < h_total))[:, None, None].to(agg.dtype)
         vols.append(agg)
-    aggs = _aggregate_sharded(vols, sgm, *sgm_mod.penalties(cfg, sgm), exact=exact)
-    disps, valids, cbests = [], [], []
-    for agg in aggs:
+    aggs = _aggregate_sharded(row, vols, sgm, *sgm_mod.penalties(cfg, sgm), exact=exact)
+
+    def wta(agg):
         agg = agg[wu:wu + th] if wu else agg
         disp, valid, cbest = dense.wta(agg, cfg.subpixel, cfg.uniqueness)
         if cfg.lr_threshold is not None:
             disp_r = dense.right_disparity_from_volume(agg)
             valid = valid & dense.lr_consistency(disp, disp_r, cfg.lr_threshold,
                                                  cfg.num_disparities)
-        disps.append(dense.fill_invalid(disp, valid))
-        valids.append(valid)
-        cbests.append(cbest)
-    return _median_blocks(dense.median3, disps), valids, cbests
+        return dense.fill_invalid(disp, valid), valid, cbest
+
+    disps, valids, cbests = _unzip(_map(wta, aggs), 3)
+    return _median_blocks(dense.median3, disps, row), valids, cbests
 
 
 def match_pair_sgm_sharded(
@@ -126,8 +155,8 @@ def match_pair_sgm_sharded(
     mesh = _mesh(mesh)
     halo = required_halo(cfg) if halo is None else halo
     wu = 0 if exact else int(warmup)
-    devs = mesh.devices[0]
-    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
-    _check_halo(lgs[0].shape[0], halo + wu, "halo+warmup")
-    return _result(mesh, *_sgm_tiles(lgs, rgs, cfg=cfg, sgm=sgm, halo=halo, wu=wu,
-                                     h_total=left.shape[0], exact=exact))
+    row = mesh.row(0)
+    lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
+    _check_halo(left.shape[0] // len(lgs), halo + wu, "halo+warmup")
+    return _result(mesh, row, *_sgm_tiles(row, lgs, rgs, cfg=cfg, sgm=sgm, halo=halo, wu=wu,
+                                          h_total=left.shape[0], exact=exact))

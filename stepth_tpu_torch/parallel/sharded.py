@@ -8,27 +8,38 @@ need neighbour rows, which each shard takes from its neighbours as a halo
 edge row (``edge="replicate"``, the unsharded ``pad(mode="edge")``), and
 costs of rows outside the image are zeroed (the unsharded zero-pad
 clipping), so every path here equals its unsharded twin bit for bit on
-integer-valued inputs. The shards run one after another in a Python loop
-(:mod:`stepth_tpu_torch.parallel.mesh`); each shard's kernels launch on its
-own device, and halos move with ``.to(device, non_blocking=True)``.
+integer-valued inputs. The shards this process owns run one after another
+in a Python loop (:mod:`stepth_tpu_torch.parallel.mesh`); each shard's
+kernels launch on its own device, and halos move with ``.to(device,
+non_blocking=True)``.
+
+A mesh may span processes (``distributed.global_mesh``). A block list then
+holds None at the slots of other processes, whose rows this process never
+reads; a halo from such a slot, the gathered result and the global max go
+through the transport of :mod:`.distributed`, and every process returns
+the same whole result, on its own first slot (``mesh.first``). The result
+equals the same call on a one-process mesh of the same shape bit for bit:
+the shards compute the same values, and the transport copies them.
 
 The kernel paths (``match_pair_sharded_pallas``, the hierarchical, batched
 and temporal ones) take ``plain=True`` to run every kernel's plain version
-instead, on any device. Results are gathered on the mesh's first device.
+instead, on any device.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.match import dense, fused_dense, fused_refine, pyramid
-from stepth_tpu_torch.parallel.mesh import Mesh, make_mesh
+from stepth_tpu_torch.parallel import distributed
+from stepth_tpu_torch.parallel.mesh import Mesh, Row, make_mesh
 
-Blocks = List[torch.Tensor]
+# one entry per slot of a mesh row: a tensor, or None at another process's slot
+Blocks = List[Optional[torch.Tensor]]
 
 
 def required_halo(cfg: MatchConfig) -> int:
@@ -51,45 +62,95 @@ def _on(x, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
 
-def scatter_rows(x, devices: Sequence[torch.device]) -> Blocks:
+def _map(fn, blocks: Blocks) -> Blocks:
+    """``fn`` of each block this process holds; None stays None."""
+    return [None if b is None else fn(b) for b in blocks]
+
+
+def _unzip(outs, k: int):
+    """``k`` block lists from one list of ``k``-tuples (None at another
+    process's slot)."""
+    return tuple([None if o is None else o[j] for o in outs] for j in range(k))
+
+
+def scatter_rows(x, slots) -> Blocks:
     """Split a whole image (tensor or array) ``[H, ...]`` into equal row
-    blocks, block ``i`` contiguous on ``devices[i]``."""
+    blocks, block ``i`` contiguous on slot ``i``'s device. ``slots`` is a
+    mesh :class:`Row`, or a sequence of devices all this process's; at a
+    slot of another process the block is None, and those rows of ``x`` are
+    never read."""
+    devices, local = ((slots.devices, slots.is_local) if isinstance(slots, Row)
+                      else (slots, lambda i: True))
     n, h = len(devices), x.shape[0]
     if h % n != 0:
         raise ValueError(f"H={h} not divisible by tile axis {n}")
     th = h // n
-    return [_on(x[i * th:(i + 1) * th], d).contiguous() for i, d in enumerate(devices)]
+    return [_on(x[i * th:(i + 1) * th], d).contiguous() if local(i) else None
+            for i, d in enumerate(devices)]
 
 
-def gather_rows(blocks: Blocks, device) -> torch.Tensor:
-    """The row blocks concatenated on ``device``."""
+def gather_rows(blocks: Blocks, device, ranks=None) -> torch.Tensor:
+    """The row blocks concatenated on ``device``. ``ranks``, the process
+    owning each block, is given when the mesh spans processes: then every
+    process gets every block (its list holds None at other processes'
+    slots)."""
+    if ranks is not None:
+        blocks = distributed.all_gather_ordered([b for b in blocks if b is not None], ranks,
+                                                device)
     return torch.cat([b.to(device) for b in blocks])
 
 
-def _gray_blocks(x, devices) -> Blocks:
-    return [dense.grayscale(b) for b in scatter_rows(x, devices)]
+def _gather(mesh: Mesh, row: Row, blocks: Blocks) -> torch.Tensor:
+    """A row's blocks gathered on this process's first slot."""
+    return gather_rows(blocks, mesh.first, row.ranks if mesh.spans_processes else None)
 
 
-def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero"):
+def _gray_blocks(x, row: Row) -> Blocks:
+    return _map(dense.grayscale, scatter_rows(x, row))
+
+
+def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero",
+                       row: Optional[Row] = None):
     """``(top, bottom)`` halo slabs ``[halo, ...]`` of each shard, on its
     device: the last ``halo`` rows of the shard above and the first of the
     shard below. The first and last shards have no neighbour there:
     ``edge="zero"`` gives zeros, ``edge="replicate"`` repeats the shard's
-    own boundary row."""
+    own boundary row. ``row`` (None: every block is this process's) names
+    the owner of each block: slabs to and from a neighbour of another
+    process go through one ``distributed.transfer`` (tag ``2i``: slot
+    ``i``'s top, ``2i + 1``: its bottom), and the other processes' entries
+    are None."""
     if edge not in ("zero", "replicate"):
         raise ValueError(f"edge must be 'zero' or 'replicate', got {edge!r}")
     n = len(blocks)
+    local = (lambda j: True) if row is None else row.is_local
+    sends, recvs = [], []
+    for i, x in enumerate(blocks):
+        if x is None:
+            continue
+        slab = (halo,) + tuple(x.shape[1:])
+        for j, mine, tag_in, tag_out in ((i - 1, x[:halo], 2 * i, 2 * i - 1),
+                                         (i + 1, x[-halo:], 2 * i + 1, 2 * i + 2)):
+            if 0 <= j < n and not local(j):
+                recvs.append(distributed.Recv(slab, x.dtype, x.device, row.ranks[j], tag_in))
+                sends.append(distributed.Send(mine, row.ranks[j], tag_out))
+    got = dict(zip((r.tag for r in recvs), distributed.transfer(sends, recvs)))
     out = []
     for i, x in enumerate(blocks):
+        if x is None:
+            out.append(None)
+            continue
         rows = (halo,) + tuple(x.shape[1:])
         if i > 0:
-            top = blocks[i - 1][-halo:].to(x.device, non_blocking=True)
+            top = (blocks[i - 1][-halo:].to(x.device, non_blocking=True)
+                   if local(i - 1) else got[2 * i])
         elif edge == "replicate":
             top = x[:1].expand(rows)
         else:
             top = x.new_zeros(rows)
         if i < n - 1:
-            bot = blocks[i + 1][:halo].to(x.device, non_blocking=True)
+            bot = (blocks[i + 1][:halo].to(x.device, non_blocking=True)
+                   if local(i + 1) else got[2 * i + 1])
         elif edge == "replicate":
             bot = x[-1:].expand(rows)
         else:
@@ -98,35 +159,38 @@ def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero"):
     return out
 
 
-def _with_halo(blocks: Blocks, halo: int, edge: str) -> Blocks:
+def _with_halo(blocks: Blocks, halo: int, edge: str, row: Optional[Row] = None) -> Blocks:
     """Each shard's rows extended by ``halo`` exchanged rows on both sides."""
-    return [torch.cat([top, x, bot])
-            for x, (top, bot) in zip(blocks, halo_exchange_rows(blocks, halo, edge))]
+    return [None if x is None else torch.cat([tb[0], x, tb[1]])
+            for x, tb in zip(blocks, halo_exchange_rows(blocks, halo, edge, row))]
 
 
-def _median_blocks(median_fn, disps: Blocks) -> Blocks:
+def _median_blocks(median_fn, disps: Blocks, row: Row) -> Blocks:
     """The 3×3 median of each shard's rows over a one-row disparity halo,
     edge-replicated at the image borders."""
-    return [median_fn(d)[1:-1] for d in _with_halo(disps, 1, "replicate")]
+    return _map(lambda d: median_fn(d)[1:-1], _with_halo(disps, 1, "replicate", row))
 
 
-def _result(mesh: Mesh, disps: Blocks, valids: Blocks, cbests: Optional[Blocks] = None):
-    disp = gather_rows(disps, mesh.first)
-    cost = torch.zeros_like(disp) if cbests is None else gather_rows(cbests, mesh.first)
-    return dense.MatchResult(disparity=disp, valid=gather_rows(valids, mesh.first), cost=cost)
+def _result(mesh: Mesh, row: Row, disps: Blocks, valids: Blocks,
+            cbests: Optional[Blocks] = None):
+    """One pair's whole result from its blocks over ``row``, on this
+    process's first slot."""
+    disp = _gather(mesh, row, disps)
+    cost = torch.zeros_like(disp) if cbests is None else _gather(mesh, row, cbests)
+    return dense.MatchResult(disparity=disp, valid=_gather(mesh, row, valids), cost=cost)
 
 
 # ---- the dense (XLA) matcher ---------------------------------------------
 
 
-def _match_tiles(lgs: Blocks, rgs: Blocks, cfg: MatchConfig, halo: int, h_total: int):
+def _match_tiles(row: Row, lgs: Blocks, rgs: Blocks, cfg: MatchConfig, halo: int,
+                 h_total: int):
     """Per-shard dense match of gray row blocks on rows extended by ``halo``
     (the reference's ``_match_tile``). Returns per-shard disparity, valid
     and cost blocks."""
-    th = lgs[0].shape[0]
-    disps, valids, cbests = [], [], []
-    ext = zip(_with_halo(lgs, halo, "replicate"), _with_halo(rgs, halo, "replicate"))
-    for i, (lg, rg) in enumerate(ext):
+    th = h_total // len(lgs)
+
+    def tile(i, lg, rg):
         vol = dense.cost_volume(lg, rg, cfg)  # [th + 2·halo, W, D]
         # zero the cost of rows outside the image: box sums then match the
         # unsharded zero-pad clipping exactly
@@ -138,10 +202,12 @@ def _match_tiles(lgs: Blocks, rgs: Blocks, cfg: MatchConfig, halo: int, h_total:
         if cfg.lr_threshold is not None:
             disp_r = dense.right_disparity_from_volume(agg)
             valid = valid & dense.lr_consistency(disp, disp_r, cfg.lr_threshold)
-        disps.append(dense.fill_invalid(disp, valid))
-        valids.append(valid)
-        cbests.append(cbest)
-    return _median_blocks(dense.median3, disps), valids, cbests
+        return dense.fill_invalid(disp, valid), valid, cbest
+
+    ext = zip(_with_halo(lgs, halo, "replicate", row), _with_halo(rgs, halo, "replicate", row))
+    disps, valids, cbests = _unzip([None if lg is None else tile(i, lg, rg)
+                                    for i, (lg, rg) in enumerate(ext)], 3)
+    return _median_blocks(dense.median3, disps, row), valids, cbests
 
 
 def _check_halo(th: int, halo: int, what: str = "halo") -> None:
@@ -156,10 +222,10 @@ def match_pair_sharded(left, right, cfg: MatchConfig = MatchConfig(),
     pair over ``mesh``'s ``tile`` axis; equals ``dense.match_pair``."""
     mesh = _mesh(mesh)
     halo = required_halo(cfg) if halo is None else halo
-    devs = mesh.devices[0]
-    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
-    _check_halo(lgs[0].shape[0], halo)
-    return _result(mesh, *_match_tiles(lgs, rgs, cfg, halo, left.shape[0]))
+    row = mesh.row(0)
+    lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
+    _check_halo(left.shape[0] // len(lgs), halo)
+    return _result(mesh, row, *_match_tiles(row, lgs, rgs, cfg, halo, left.shape[0]))
 
 
 def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
@@ -167,7 +233,8 @@ def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
                         ) -> torch.Tensor:
     """Batched pairs ``[B, H, W(, C)]``: the batch shards over ``data``, the
     rows of each pair over that data row's ``tile`` devices. Returns the
-    disparity f32[B, H, W] on the mesh's first device."""
+    disparity f32[B, H, W] on the mesh's first device (on every process,
+    each pair computed by the processes of its data row)."""
     mesh = _mesh(mesh)
     halo = required_halo(cfg) if halo is None else halo
     b, h = lefts.shape[0], lefts.shape[1]
@@ -178,10 +245,10 @@ def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
         raise ValueError(f"H={h} not divisible by tile axis {nt}")
     out = []
     for k in range(b):
-        devs = mesh.devices[k // (b // nd)]
-        disps, _, _ = _match_tiles(_gray_blocks(lefts[k], devs), _gray_blocks(rights[k], devs),
-                                   cfg, halo, h)
-        out.append(gather_rows(disps, mesh.first))
+        row = mesh.row(k // (b // nd))
+        disps, _, _ = _match_tiles(row, _gray_blocks(lefts[k], row),
+                                   _gray_blocks(rights[k], row), cfg, halo, h)
+        out.append(_gather(mesh, row, disps))
     return torch.stack(out)
 
 
@@ -201,19 +268,21 @@ def match_pair_sharded_pallas(left, right, cfg: MatchConfig = MatchConfig(),
     mesh = _mesh(mesh)
     halo = required_halo(cfg) if halo is None else halo
     halo = (halo + 7) // 8 * 8  # the reference's sublane-aligned halo
-    devs = mesh.devices[0]
-    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
-    th, h = lgs[0].shape[0], left.shape[0]
+    row = mesh.row(0)
+    lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
+    h = left.shape[0]
+    th = h // len(lgs)
     _check_halo(th, halo)
-    disps, valids, cbests = [], [], []
-    ext = zip(_with_halo(lgs, halo, "replicate"), _with_halo(rgs, halo, "replicate"))
-    for i, (lg, rg) in enumerate(ext):
+
+    def tile(i, lg, rg):
         disp, _, cbest, valid_f = raw(lg, rg, cfg, tile_rows, i * th - halo, h)
         valid = valid_f[halo:halo + th] > 0.5
-        disps.append(dense.fill_invalid(disp[halo:halo + th], valid))
-        valids.append(valid)
-        cbests.append(cbest[halo:halo + th])
-    return _result(mesh, _median_blocks(dense.median3, disps), valids, cbests)
+        return dense.fill_invalid(disp[halo:halo + th], valid), valid, cbest[halo:halo + th]
+
+    ext = zip(_with_halo(lgs, halo, "replicate", row), _with_halo(rgs, halo, "replicate", row))
+    disps, valids, cbests = _unzip([None if lg is None else tile(i, lg, rg)
+                                    for i, (lg, rg) in enumerate(ext)], 3)
+    return _result(mesh, row, _median_blocks(dense.median3, disps, row), valids, cbests)
 
 
 # ---- the hierarchical paths ----------------------------------------------
@@ -247,42 +316,49 @@ def _hierarchical_geometry(h: int, ntile: int, cfg: MatchConfig, pyr: PyramidCon
     return tr, halo
 
 
-def _refine_blocks(path, lgs, rgs, priors, cfg, radius, max_base, tr, halo, h, lr,
+def _refine_blocks(path, row, lgs, rgs, priors, cfg, radius, max_base, tr, halo, h, lr,
                    max_windows):
     """One refine level on every shard's halo-extended rows (image and
     prior). Returns the disparity blocks and, with ``lr``, the right view's."""
-    th = lgs[0].shape[0]
-    disps, disp_rs = [], []
-    ext = zip(*(_with_halo(b, halo, "replicate") for b in (lgs, rgs, priors)))
-    for i, (lg, rg, pr) in enumerate(ext):
+    th = h // len(lgs)
+
+    def tile(i, lg, rg, pr):
         out = path.refine(lg, rg, pr, cfg, radius, max_base, tr, i * th - halo, h, lr=lr,
                           max_windows=max_windows)
         d, dr = out if lr else (out, None)
-        disps.append(d[halo:halo + th])
-        if lr:
-            disp_rs.append(dr[halo:halo + th])
+        return d[halo:halo + th], (dr[halo:halo + th] if lr else None)
+
+    ext = zip(*(_with_halo(b, halo, "replicate", row) for b in (lgs, rgs, priors)))
+    disps, disp_rs = _unzip([None if lg is None else tile(i, lg, rg, pr)
+                             for i, (lg, rg, pr) in enumerate(ext)], 2)
     return disps, (disp_rs if lr else None)
 
 
-def _post_blocks(path, disps, disp_rs, cfg: MatchConfig, max_base: int, lr_check: bool):
+def _post_blocks(path, row, disps, disp_rs, cfg: MatchConfig, max_base: int, lr_check: bool):
     """The epilogue on every shard: LR check (``D = max_base``) and
     occlusion fill with ``lr_check``, then the median."""
     if lr_check:
         thr = 1.0 if cfg.lr_threshold is None else float(cfg.lr_threshold)
-        valids = [path.lr(d, dr, thr, max_base) for d, dr in zip(disps, disp_rs)]
-        disps = [path.fill(d, v) for d, v in zip(disps, valids)]
+        valids = [None if d is None else path.lr(d, dr, thr, max_base)
+                  for d, dr in zip(disps, disp_rs)]
+        disps = [None if d is None else path.fill(d, v) for d, v in zip(disps, valids)]
     else:
-        valids = [d >= 0 for d in disps]
-    return _median_blocks(path.median, disps), valids
+        valids = _map(lambda d: d >= 0, disps)
+    return _median_blocks(path.median, disps, row), valids
 
 
-def _hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, sgm,
+def _width(blocks: Blocks) -> int:
+    """The width of the blocks this process holds (0 if none)."""
+    return next((b.shape[1] for b in blocks if b is not None), 0)
+
+
+def _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, sgm,
                          lr_check):
-    th = lgs[0].shape[0]
+    th = h // len(lgs)
     lefts, rights = [lgs], [rgs]
     for _ in range(pyr.levels - 1):
-        lefts.append([pyramid.downsample2(b) for b in lefts[-1]])
-        rights.append([pyramid.downsample2(b) for b in rights[-1]])
+        lefts.append(_map(pyramid.downsample2, lefts[-1]))
+        rights.append(_map(pyramid.downsample2, rights[-1]))
     coarse_cfg = MatchConfig(num_disparities=pyr.coarsest_disparities, window=cfg.window,
                              cost=cfg.cost, census_window=cfg.census_window,
                              subpixel=cfg.subpixel, lr_threshold=None)
@@ -293,28 +369,28 @@ def _hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, 
         from stepth_tpu_torch.parallel import sgm_sharded
 
         disps, _, _ = sgm_sharded._sgm_tiles(
-            lefts[-1], rights[-1], cfg=coarse_cfg, sgm=SGMConfig() if sgm is None else sgm,
-            halo=required_halo(coarse_cfg), wu=0, h_total=h_l, exact=True)
+            row, lefts[-1], rights[-1], cfg=coarse_cfg,
+            sgm=SGMConfig() if sgm is None else sgm, halo=required_halo(coarse_cfg), wu=0,
+            h_total=h_l, exact=True)
     else:
-        disps = []
-        ext = zip(_with_halo(lefts[-1], halo, "replicate"),
-                  _with_halo(rights[-1], halo, "replicate"))
-        for i, (lg, rg) in enumerate(ext):
-            d = path.match(lg, rg, coarse_cfg, min(tr, 16), i * th_l - halo, h_l)[0]
-            disps.append(d[halo:halo + th_l])
+        ext = zip(_with_halo(lefts[-1], halo, "replicate", row),
+                  _with_halo(rights[-1], halo, "replicate", row))
+        disps = [None if lg is None else
+                 path.match(lg, rg, coarse_cfg, min(tr, 16), i * th_l - halo, h_l)[0]
+                 [halo:halo + th_l] for i, (lg, rg) in enumerate(ext)]
     max_base = pyr.coarsest_disparities
     disp_rs = None
     for lvl in range(pyr.levels - 2, -1, -1):
         th_l, h_l = th >> lvl, h >> lvl
-        w_l = lefts[lvl][0].shape[1]
-        priors = [pyramid.upsample2_disparity(d, th_l, w_l) for d in disps]
+        w_l = _width(lefts[lvl])
+        priors = _map(lambda d: pyramid.upsample2_disparity(d, th_l, w_l), disps)
         max_base *= 2
         want_lr = lr_check and lvl == 0
         disps, disp_rs = _refine_blocks(
-            path, lefts[lvl], rights[lvl], priors, cfg,
+            path, row, lefts[lvl], rights[lvl], priors, cfg,
             pyr.final_radius if lvl == 0 else pyr.refine_radius, max_base, tr, halo, h_l,
             want_lr, pyr.final_windows if lvl == 0 else pyr.refine_windows)
-    return _post_blocks(path, disps, disp_rs, cfg, max_base, lr_check)
+    return _post_blocks(path, row, disps, disp_rs, cfg, max_base, lr_check)
 
 
 def match_hierarchical_sharded(
@@ -352,12 +428,12 @@ def match_hierarchical_sharded(
         raise ValueError(f"coarse_backend must be 'wta' or 'sgm', got {coarse_backend!r}")
     if lr_check and pyr.levels == 1:
         raise ValueError("lr_check needs at least one refine level")
-    devs = mesh.devices[0]
+    row = mesh.row(0)
     h = left.shape[0]
-    tr, halo = _hierarchical_geometry(h, len(devs), cfg, pyr, tile_rows)
-    lgs, rgs = _gray_blocks(left, devs), _gray_blocks(right, devs)
-    return _result(mesh, *_hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo,
-                                               coarse_backend, sgm, lr_check))
+    tr, halo = _hierarchical_geometry(h, len(row.devices), cfg, pyr, tile_rows)
+    lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
+    return _result(mesh, row, *_hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo,
+                                                    coarse_backend, sgm, lr_check))
 
 
 def _stack(results) -> dense.MatchResult:
@@ -379,9 +455,9 @@ def match_batch_hierarchical_sharded(
 ) -> dense.MatchResult:
     """Data-parallel batch of whole frames ``[B, H, W(, C)]``: frame ``k``
     runs the unsharded hierarchical matcher on the first device of data row
-    ``k // (B / data)``; no halos, no relay. Each frame equals
-    ``fused_refine.match_hierarchical_fused``. Stacked results on the mesh's
-    first device."""
+    ``k // (B / data)``, in the process owning it; no halos, no relay. Each
+    frame equals ``fused_refine.match_hierarchical_fused``. Stacked results
+    on the mesh's first device, on every process."""
     match = (fused_refine.match_hierarchical_plain if plain
              else fused_refine.match_hierarchical_fused)
     pyr = PyramidConfig() if pyr is None else pyr
@@ -389,12 +465,19 @@ def match_batch_hierarchical_sharded(
     b, nd = lefts.shape[0], mesh.shape["data"]
     if b % nd != 0:
         raise ValueError(f"B={b} not divisible by data axis {nd}")
+    slots = [(k // (b // nd), 0) for k in range(b)]
     frames = []
-    for k in range(b):
-        dev = mesh.devices[k // (b // nd)][0]
-        res = match(_on(lefts[k], dev), _on(rights[k], dev), cfg, pyr, tile_rows, lr_check,
-                    coarse_backend, sgm=sgm)
-        frames.append([f.to(mesh.first) for f in res])
+    for k, slot in enumerate(slots):
+        if mesh.is_local(slot):
+            dev = mesh.devices[slot[0]][0]
+            res = match(_on(lefts[k], dev), _on(rights[k], dev), cfg, pyr, tile_rows,
+                        lr_check, coarse_backend, sgm=sgm)
+            frames.append([f.to(mesh.first) for f in res])
+    if mesh.spans_processes:
+        owners = [mesh.ranks[d][t] for d, t in slots]
+        fields = [distributed.all_gather_ordered([f[j] for f in frames], owners, mesh.first)
+                  for j in range(3)]
+        frames = list(zip(*fields))
     return _stack(frames)
 
 
@@ -424,32 +507,36 @@ def match_temporal_sharded(
         raise ValueError(f"keyframe_interval must be >= 1, got {keyframe_interval}")
     if lr_check and pyr.levels == 1:
         raise ValueError("lr_check needs at least one refine level")
-    devs = mesh.devices[0]
+    row = mesh.row(0)
     h = lefts.shape[1]
-    tr, halo = _hierarchical_geometry(h, len(devs), cfg, pyr, tile_rows)
+    tr, halo = _hierarchical_geometry(h, len(row.devices), cfg, pyr, tile_rows)
     max_base = pyr.coarsest_disparities << (pyr.levels - 1)
     frames, prev = [], None
     for t in range(lefts.shape[0]):
-        lgs, rgs = _gray_blocks(lefts[t], devs), _gray_blocks(rights[t], devs)
+        lgs, rgs = _gray_blocks(lefts[t], row), _gray_blocks(rights[t], row)
         if t % keyframe_interval == 0:
-            disps, valids = _hierarchical_blocks(path, lgs, rgs, h, cfg, pyr, tr, halo, "wta",
-                                                 None, lr_check)
+            disps, valids = _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo,
+                                                 "wta", None, lr_check)
         else:
-            d, dr = _refine_blocks(path, lgs, rgs, prev, cfg, pyr.final_radius, max_base, tr,
-                                   halo, h, lr_check, pyr.final_windows)
-            disps, valids = _post_blocks(path, d, dr, cfg, max_base, lr_check)
+            d, dr = _refine_blocks(path, row, lgs, rgs, prev, cfg, pyr.final_radius, max_base,
+                                   tr, halo, h, lr_check, pyr.final_windows)
+            disps, valids = _post_blocks(path, row, d, dr, cfg, max_base, lr_check)
         prev = disps
-        frames.append(_result(mesh, disps, valids))
+        frames.append(_result(mesh, row, disps, valids))
     return _stack(frames)
 
 
 def normalize_depth_sharded(raw_depth, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Global max-normalisation of a row-sharded raw u8 depth map: the max
-    over shards, then each shard's local ``v · 255 // max`` to u8; an
-    all-zero input stays all zero. On the mesh's first device."""
+    over shards (and over processes), then each shard's local
+    ``v · 255 // max`` to u8; an all-zero input stays all zero. On the
+    mesh's first device."""
     mesh = _mesh(mesh)
-    blocks = [b.to(torch.int32) for b in scatter_rows(raw_depth, mesh.devices[0])]
-    m = max(int(b.max()) for b in blocks)
-    out = [(b * 255 // max(m, 1) if m > 0 else torch.zeros_like(b)).to(torch.uint8)
-           for b in blocks]
-    return gather_rows(out, mesh.first)
+    row = mesh.row(0)
+    blocks = _map(lambda b: b.to(torch.int32), scatter_rows(raw_depth, row))
+    m = max([int(b.max()) for b in blocks if b is not None], default=0)
+    if mesh.spans_processes:
+        m = int(distributed.max_over_ranks(m))
+    out = _map(lambda b: (b * 255 // max(m, 1) if m > 0 else torch.zeros_like(b)
+                          ).to(torch.uint8), blocks)
+    return _gather(mesh, row, out)
