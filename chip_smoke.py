@@ -187,6 +187,22 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    slots of ``cuda:0``, its cost below 7a's limit); e. the failure drill
    (the seconds from the peer's death to its detection).
 
+9. the communication model (``comm_checks``): a. the transport tally
+   (``distributed.traffic``) of one call of each one-process sharded path
+   of 4i-4j (path 3 exact on 3 shards at 4 and 8 directions,
+   ``flagship()`` on 4, production and ``hierarchical-sgm`` on 4 at
+   1024×1920) against ``parallel.comm_model``, kind by kind (permute,
+   gather, max), bytes, moves and relay hops, exactly; b. each rank's bytes
+   sent in 8a-c against ``comm_model.bytes_sent`` for the drill's slot
+   owners; c. ``depth --backend native`` (the C++ host engine, built with
+   g++) and ``--backend oracle`` (the NumPy oracle, in a process of its own
+   started after the build, beside phases 3-8: it takes minutes at
+   400×600) on 6a's pair, each PNG equal to parity's depth from the card
+   byte for byte, with the host ms of each beside parity's; d. a scaling
+   projection (2, 4 and 8 cards on 1 and 2 hosts) of production and the
+   exact ``sgm-pallas`` from this run's unsharded frames: a model, its link
+   rates assumptions, not a measurement.
+
 Any failed check raises and the script exits non-zero. The line before the
 last is a JSON summary of the kernels (launches from the run named in each
 entry's ``path``, ``mapping_launches`` from 7a's clip and
@@ -197,8 +213,10 @@ JAX.
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -207,6 +225,7 @@ import time
 import numpy as np
 import torch
 
+from stepth_tpu_torch.parallel import distributed
 from stepth_tpu_torch.parallel.drill import BA_SIZES, make_clip, make_pair
 
 SEED = 0  # seed of the smooth pair, the clip and the random maps
@@ -816,7 +835,8 @@ def print_parity_times(shape, t, card):
 
 
 def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
-    """Phase 6, the reference's own flows through the port's entry points:
+    """Phase 6, the reference's own flows through the port's entry points
+    (returns 6a's pair, its parity depth from the card and parity's ms):
     a. parity at the reference's own size through ``DepthFrame`` (depth,
        then invert, foreground, apply_mask), the card bit-equal to the CPU,
        and its phase times there and at 1080p;
@@ -858,7 +878,8 @@ def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
     print(f"  depth, foreground mask and masked image: card == CPU bit for bit; depth max "
           f"{int(depth.max())}, {float((depth > 0).float().mean()):.4f} of pixels nonzero, "
           f"foreground share {float((fg_mask == 255).float().mean()):.4f}")
-    print_parity_times(PARITY_SHAPE, parity_times(main, add, dev), card)
+    parity_t = parity_times(main, add, dev)
+    print_parity_times(PARITY_SHAPE, parity_t, card)
     main_hd, add_hd = gray_rgb(pair[0]), gray_rgb(pair[1])
     print_parity_times((H, W), parity_times(main_hd, add_hd, dev), card)
 
@@ -994,6 +1015,7 @@ def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
                     raise AssertionError(f"loader {key} {path}: not on the card or not equal")
         print(f"  {len(batches)} pairs in order, on the card, equal to io.open_rgb")
     print(f"== phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    return {"main": main, "add": add, "depth": depth, "parity_ms": parity_t["total_s"] * 1e3}
 
 
 # the mapping path (phase 7a): tools/mapping_bench.py's defaults, config 5
@@ -1669,7 +1691,9 @@ def multiprocess_drills(card):
     ``supervisor.supervise`` relaunches rank 0 alone on ``auto_mesh(n_obs,
     devices=["cuda:0"] * 4)``, and the resumed cost must meet phase 7a's
     limit. e. the failure drill: the seconds from the peer's death to its
-    detection. Returns each kernel's launches in a. and b., by rank."""
+    detection. Returns each kernel's launches in a. and b., by rank, and
+    each rank's bytes sent with the slot owners of a.-c. (``(bytes,
+    owners)`` by mode)."""
     from stepth_tpu_torch.utils import supervisor
 
     t_phase = time.perf_counter()
@@ -1681,6 +1705,8 @@ def multiprocess_drills(card):
         _, nums = drill_pair(modes, out, "--size", "full", "--check", "--paired", "--reps",
                              str(DRILL_REPS))
         launches = [{} for _ in range(2)]
+        sent = {m: [(nums[r][m]["bytes_per_solve" if m == "ba" else "bytes_per_frame"],
+                     nums[r][m]["owners"]) for r in range(2)] for m in modes.split(",")}
         for mode in modes.split(","):
             results = [np.load(os.path.join(out, f"{mode}_r{r}.npz")) for r in range(2)]
             for name in results[0].files:
@@ -1749,7 +1775,123 @@ def multiprocess_drills(card):
         print(f"  rank 0 detected the death {nums[0]['failure']['since_death_s']:.4f} s after it "
               f"(barrier raised {nums[0]['failure']['detect_s']:.4f} s after it began)")
     print(f"== phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, sent
+
+
+# phase 9: the communication model, the host anchors, the projection
+PROJECT_CARDS = (2, 4, 8)  # 9d's card counts, on 1 and 2 hosts
+ORACLE_TIMEOUT = 900  # seconds 9c's oracle may take at 400x600
+
+
+def stop(proc):
+    """End ``proc`` if it still runs."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_oracle_depth():
+    """9c's ``depth --backend oracle`` on phase 6a's pair, started in a
+    process of its own on the host (one core) so that it runs beside phases
+    3-8; it prints its own wall ms, and is killed at exit if still running."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_oracle_")
+    main, add = parity_pair(*PARITY_SHAPE, seed=SEED)
+    paths = [os.path.join(tmp, n) for n in ("main.png", "add.png", "oracle.png")]
+    from stepth_tpu_torch.core import io
+
+    io.save(paths[0], main)
+    io.save(paths[1], add)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, time; from stepth_tpu_torch import cli; t0 = time.perf_counter(); "
+            "rc = cli.main(sys.argv[1:]); print('ms', (time.perf_counter() - t0) * 1e3); "
+            "sys.exit(rc)")
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-c", code, "--device", "cpu", "depth", *paths,
+                             "--precision", str(PRECISION[0]), "--backend", "oracle"],
+                            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    atexit.register(shutil.rmtree, tmp, True)  # runs after the stop below
+    atexit.register(stop, proc)
+    return {"proc": proc, "dir": tmp, "paths": paths}
+
+
+def comm_checks(card, tallies, drill_bytes, flows, oracle_run, projections):
+    """Phase 9. a. each one-process sharded call of 4i-4j (``tallies``:
+    tag -> (tally, report)) against its model, kind by kind, bytes, moves
+    and relay hops, exactly; b. each rank's bytes sent in 8a-c against
+    ``comm_model.bytes_sent`` for the drill's slot owners; c. ``depth
+    --backend native`` and ``--backend oracle`` (host engines) on 6a's pair
+    against parity's depth from the card, byte for byte, with the host ms
+    of each beside parity's card ms; d. the scaling projection of each of
+    ``projections`` (name -> (report of n cards, unsharded ms/frame)), a
+    model whose link rates are assumptions."""
+    from stepth_tpu_torch import cli, native
+    from stepth_tpu_torch.core import io
+    from stepth_tpu_torch.parallel import comm_model
+    from stepth_tpu_torch.parallel.drill import ba_report, frame_drill
+
+    t_phase = time.perf_counter()
+    print(f"== 9a. the transport tally of one call against the communication model "
+          f"(one process, the mesh repeating cuda:0); card: {card}")
+    for tag, (got, report) in tallies.items():
+        want = report.by_kind()
+        if got != want:
+            raise AssertionError(f"{tag}: tally {got} != model {want}\n{report.table()}")
+        print(f"  {tag}: equal by kind, (bytes, moves, relay hops) "
+              + ", ".join(f"{k} {v}" for k, v in got.items()))
+
+    print("== 9b. each rank's bytes sent in phase 8 against comm_model.bytes_sent")
+    for mode, per_rank in drill_bytes.items():
+        report = ba_report("full") if mode == "ba" else frame_drill(mode, "full").report
+        for r, (nbytes, owners) in enumerate(per_rank):
+            want = comm_model.bytes_sent(report, owners, r)
+            if nbytes != want:
+                raise AssertionError(f"drill {mode} rank {r}: sent {nbytes} != model {want}")
+        print(f"  {mode}: slot owners {per_rank[0][1]}, each rank "
+              f"{[b for b, _ in per_rank]} bytes, equal to the model")
+
+    print(f"== 9c. depth --backend native and --backend oracle on 6a's "
+          f"{PARITY_SHAPE[0]}x{PARITY_SHAPE[1]} pair against parity on the card; card: {card}")
+    t0 = time.perf_counter()
+    out, _ = oracle_run["proc"].communicate(timeout=ORACLE_TIMEOUT)
+    waited = time.perf_counter() - t0
+    if oracle_run["proc"].returncode != 0:
+        raise AssertionError(f"depth --backend oracle failed:\n{out[-4000:]}")
+    oracle_ms = float(out.split("ms ")[-1])
+    mpath, apath, opath = oracle_run["paths"]
+    npath = os.path.join(oracle_run["dir"], "native.png")
+    t0 = time.perf_counter()
+    native.load()  # the g++ build, apart from the call's time
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cli.main(["--device", "cpu", "depth", mpath, apath, npath, "--precision",
+                 str(PRECISION[0]), "--backend", "native"]) != 0:
+        raise AssertionError("depth --backend native failed")
+    native_ms = (time.perf_counter() - t0) * 1e3
+    want = flows["depth"].numpy()
+    for name, path in (("native", npath), ("oracle", opath)):
+        got = io.open_luma(path)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"depth --backend {name} != parity on the card at "
+                                 f"{int((got != want).sum())} pixels")
+    print(f"  both PNGs equal to parity's depth from the card byte for byte; host ms (CLI, "
+          f"PNG decode and encode included): native {native_ms:.4f} (after its g++ build, "
+          f"{build_s:.1f} s), oracle {oracle_ms:.4f} "
+          f"(its own process, beside phases 3-8; waited {waited:.1f} s for it here); parity "
+          f"on the card {flows['parity_ms']:.4f} ms (6a, median of {PARITY_REPS})")
+
+    print(f"== 9d. scaling projection: a model, not a measurement (no machine here holds "
+          f"two cards; NCCL across cards unverified). Link rates assumed: NVLink "
+          f"{comm_model.NVLINK_GBPS} GB/s within a host, network {comm_model.NET_GBPS} GB/s "
+          f"between hosts; compute: this run's unsharded frame on {card}, divided by n")
+    for name, (report_of, ms1) in projections.items():
+        for hosts in (1, 2):
+            cells = []
+            for n in PROJECT_CARDS:
+                p = comm_model.project(report_of(n), ms1, n, hosts)
+                cells.append(f"n={n}: comm {p.comm_ms:.4f} ms, efficiency {p.efficiency:.4f}")
+            print(f"  {name} ({ms1:.4f} ms on 1 card), {hosts} host(s): " + "; ".join(cells))
+    print(f"== phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1767,7 +1909,7 @@ def main() -> int:
     from stepth_tpu_torch.models.stereo import StereoModel, flagship
     from stepth_tpu_torch.ops import depth as depth_ops
     from stepth_tpu_torch.ops import fused_remap, kmeans, photometric, rectify
-    from stepth_tpu_torch.parallel import sgm_pallas_sharded, sharded
+    from stepth_tpu_torch.parallel import comm_model, sgm_pallas_sharded, sharded
     from stepth_tpu_torch.parallel.mesh import make_mesh
     from stepth_tpu_torch.utils import scenes
     from stepth_tpu_torch.utils.rig import plane_rig
@@ -1795,6 +1937,9 @@ def main() -> int:
     for line in info["ptxas"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+    # 9c's NumPy oracle takes minutes at 400x600: it runs on one host core
+    # beside phases 3-8
+    oracle_run = start_oracle_depth()
 
     KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
                "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5,
@@ -1808,10 +1953,11 @@ def main() -> int:
         errs[name] = max(errs[name], e)
 
     def drive(fn):
-        """Run ``fn`` with every launch count set to 0; return its output
-        and the counts."""
+        """Run ``fn`` with every launch count and the traffic tally set to
+        0; return its output and the counts."""
         for k in KERNELS.values():
             k.launches = 0
+        distributed.traffic.reset()
         out = fn()
         torch.cuda.synchronize()
         return out, {n: k.launches for n, k in KERNELS.items()}
@@ -2655,7 +2801,10 @@ def main() -> int:
         return e
 
     # 4i. sgm-pallas sharded over a mesh of [cuda:0] * 3 (path 3 sharded):
-    # exact mode at 4 and 8 directions, then windowed mode
+    # exact mode at 4 and 8 directions, then windowed mode. ``tallies``: the
+    # transport tally of one call of each sharded path of 4i-4j, with its
+    # model (phase 9a)
+    tallies = {}
     mesh3 = make_mesh(tile=3, devices=["cuda:0"] * 3)
     for ndir in (4, 8):
         tag = f"path 3 sharded, sgm-pallas {ndir} directions exact, 3 shards"
@@ -2666,6 +2815,8 @@ def main() -> int:
         res, launches = drive_checked(tag, lambda: run(left, right),
                                       {"K6": 3, "K7": 6, "K10": 6 if ndir == 4 else 18,
                                        "K9": 3, "K4": 3, "K5": 3, "K3": 3})
+        tallies[tag] = (distributed.traffic.by_kind(), comm_model.comm_sgm_sharded(
+            sgm_cfg, H, W, 3, ndir, exact=True, pallas=True))
         check_median(tag, res.disparity)
         unsharded = m(left, right)
         check_same(f"{tag} vs unsharded sgm-pallas", unsharded, res)
@@ -2697,6 +2848,8 @@ def main() -> int:
     print(f"== end to end: {tag}, {H}x{W}")
     flag4 = flag.sharded(mesh4)
     res, _ = drive_checked(tag, lambda: flag4(left, right), {"K1": 4, "K4": 4})
+    tallies[tag] = (distributed.traffic.by_kind(),
+                    comm_model.comm_pallas_sharded(flag.match, H, W, 4))
     check_median(tag, res.disparity)
     check_same(f"{tag} vs unsharded flagship()", flag(left, right), res)
     check_same(f"{tag} vs its plain path", sharded.match_pair_sharded_pallas(
@@ -2716,6 +2869,8 @@ def main() -> int:
         run = (lambda l, r, coarse=coarse: sharded.match_hierarchical_sharded(
             l, r, census, pyr, mesh4, coarse_backend=coarse, sgm=sgm4, lr_check=True))
         res, _ = drive_checked(tag, lambda: run(l2, r2), want)
+        tallies[tag] = (distributed.traffic.by_kind(), comm_model.comm_hierarchical_sharded(
+            census, pyr, H2, W, 4, 32, coarse, sgm4.directions))
         check_median(tag, res.disparity)
         check_same(f"{tag} vs unsharded at tile_rows 32", fused_refine.match_hierarchical_fused(
             l2, r2, census, pyr, 32, lr_check=True, coarse_backend=coarse, sgm=sgm4), res,
@@ -2817,6 +2972,7 @@ def main() -> int:
         torch.cuda.synchronize()
     print(f"  rig path with the PLY written, host wall clock back to back: "
           f"{(time.perf_counter() - t0) * 1e3 / REPS:.4f} ms/frame")
+    turns = {}  # sharded / unsharded ms/frame (phase 9d's compute times)
     for name, a, b in (
             ("sgm-pallas 4 directions, 3 shards / unsharded", lambda: run4(left, right),
              lambda: model4(left, right)),
@@ -2827,19 +2983,31 @@ def main() -> int:
                                                            lr_check=True))):
         ms = cuda_ms_turns(a, b)
         print(f"  {name}, timed in turns: {ms[0]:.4f} / {ms[1]:.4f} ms/frame")
+        turns[name] = ms
     for name, (k_ms, p_ms) in times.items():
         print(f"  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
 
     # 6. the reference's flows: parity, DepthFrame/MaskFrame, the hierarchical
     # backend, the CLI and the loader
-    reference_flows(dev, smi[0], drive, prod, prod_launches, model, pairs["make_pair"])
+    flows = reference_flows(dev, smi[0], drive, prod, prod_launches, model, pairs["make_pair"])
 
     # 7. the mapping path (depth fusion, pose graph, resumable BA) and the
     # two-view flow
     mapping_launches = mapping_flows(dev, smi[0], drive, err)
 
     # 8. the multi-process layer: the drills on two processes sharing the card
-    drill_launches = multiprocess_drills(smi[0])
+    drill_launches, drill_bytes = multiprocess_drills(smi[0])
+
+    # 9. the communication model against the transport, the host anchors
+    # against parity on the card, the scaling projection (9d: the report for
+    # n cards, and the unsharded frame's ms)
+    comm_checks(smi[0], tallies, drill_bytes, flows, oracle_run, {
+        f"production {H2}x{W}": (
+            lambda n: comm_model.comm_hierarchical_sharded(census, pyr, H2, W, n, 32),
+            turns[f"production {H2}x{W}, 4 shards / unsharded (tile_rows 32)"][1]),
+        f"sgm-pallas exact 1088x{W} (compute: path 3's {H}x{W} frame)": (
+            lambda n: comm_model.comm_sgm_sharded(sgm_cfg, 1088, W, n, 4, pallas=True),
+            turns["sgm-pallas 4 directions, 3 shards / unsharded"][1])})
 
     # bounds at the shapes each kernel was timed at: K1-K5 on the production
     # path (K1 and K2 census, planes in the bytes; K2 counts the candidates

@@ -2,12 +2,14 @@
 wrapper over the same public API a library user calls.
 
     python -m stepth_tpu_torch depth MAIN ADD OUT         # the reference's own flow
+        [--backend parity|native|oracle]
     python -m stepth_tpu_torch stereo LEFT RIGHT OUT      # rectified-stereo depth
     python -m stepth_tpu_torch video 'l/*.png' 'r/*.png' OUTDIR   # depth stream
     python -m stepth_tpu_torch foreground MAIN ADD OUT    # README foreground flow
 
 Everything runs on ``--device`` (before the command; ``cuda`` by default,
-``cpu`` on request).
+``cpu`` on request), except ``depth --backend native|oracle``, host engines
+by design.
 """
 
 from __future__ import annotations
@@ -26,10 +28,21 @@ BACKENDS = ["dense", "pallas", "hierarchical", "hierarchical-pallas", "hierarchi
 
 def _cmd_depth(args) -> int:
     from stepth_tpu_torch.core import io
-    from stepth_tpu_torch.match import parity
 
-    depth = parity.depth_from_additional(io.open_rgb(args.main), io.open_rgb(args.additional),
-                                         (args.precision,) * 3, device=args.device)
+    main, add = io.open_rgb(args.main), io.open_rgb(args.additional)
+    prec = (args.precision,) * 3
+    if args.backend == "native":  # the C++ host engine
+        from stepth_tpu_torch import native
+
+        depth = native.depth_from_additional(main, add, prec)
+    elif args.backend == "oracle":  # the NumPy oracle, on the host
+        from stepth_tpu_torch.oracle import pipeline
+
+        depth = pipeline.depth_from_additional_oracle(main, add, prec)
+    else:
+        from stepth_tpu_torch.match import parity
+
+        depth = parity.depth_from_additional(main, add, prec, device=args.device)
     io.save(args.out, depth)
     print(f"wrote {args.out} ({depth.shape[1]}x{depth.shape[0]})")
     return 0
@@ -172,6 +185,9 @@ def main(argv=None) -> int:
     d.add_argument("additional")
     d.add_argument("out")
     d.add_argument("--precision", type=int, default=36)
+    d.add_argument("--backend", choices=["parity", "native", "oracle"], default="parity",
+                   help="parity: torch on --device (default); native: the C++ host engine; "
+                   "oracle: the NumPy oracle (both on the host, the same output)")
     d.set_defaults(fn=_cmd_depth)
 
     s = sub.add_parser("stereo", help="dense rectified-stereo disparity")

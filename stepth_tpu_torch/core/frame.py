@@ -113,17 +113,19 @@ class DepthFrame:
 
     def load_depth_from_additional(self, add_image, precision,
                                    method: str = "parity") -> "DepthFrame":
-        """The core pipeline, on the frame's device. ``method``: ``"parity"``
-        (the default: the reference's own flow, ``match.parity``) or any
+        """The core pipeline. ``method``: ``"parity"`` (the default: the
+        reference's own flow, ``match.parity``, on the frame's device),
+        ``"native"`` (the C++ host engine, :mod:`stepth_tpu_torch.native`:
+        the same output, computed on the host) or any
         :class:`stepth_tpu_torch.models.StereoModel` backend name (disparity
-        scaled to u8 depth). ``"native"`` raises ``ValueError``: the C++ host
-        engine stays with the JAX package."""
+        scaled to u8 depth). The depth goes to the frame's device."""
         main_rgb = self.image[..., :3]
         add_rgb = _u8(add_image, self.device)[..., :3]
         if method == "native":
-            raise ValueError("method='native' is the JAX package's C++ host engine and is "
-                             "not part of the port; use 'parity' (the same output)")
-        if method == "parity":
+            from stepth_tpu_torch import native
+
+            depth = native.depth_from_additional(main_rgb, add_rgb, precision)
+        elif method == "parity":
             from stepth_tpu_torch.match import parity
 
             depth = parity.depth_from_additional(main_rgb, add_rgb, precision)

@@ -229,9 +229,14 @@ def _allsum(parts: Sequence[torch.Tensor], dev: torch.device,
     reference's ``psum``; one shard: the partial itself). ``owners`` (the
     process of each shard; None: all this one's) makes ``parts`` this
     process's shards only (possibly none), each of ``like``'s ``(shape,
-    dtype)``, gathered from every process first."""
+    dtype)``, gathered from every process first. Else every partial after
+    the first (which lies on ``dev``) is a ``gather`` move of the traffic
+    tally."""
     if owners is not None:
         parts = distributed.all_gather_ordered(parts, owners, dev, like)
+    else:
+        for p in parts[1:]:
+            distributed.traffic.move("gather", p.numel() * p.element_size())
     out = parts[0].to(dev)
     for p in parts[1:]:
         out = out + p.to(dev)

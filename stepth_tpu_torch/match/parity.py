@@ -28,14 +28,13 @@ oracle (``stepth_tpu/oracle/pipeline.py``) bit for bit:
   all zero where the max is 0 (quirk Q3), then
   ``ops.resize.resample_exact(…, "gaussian")``.
 
-The static-geometry helpers are a copy of ``stepth_tpu/oracle/
-subdivision.py:28-72`` (numpy only; the port imports nothing of the JAX
-package).
+The static-geometry helpers (``axis_boundaries``, ``split_axes``,
+``level_geometry``, ``default_max_splits``) are the port's NumPy oracle's
+(``stepth_tpu_torch.oracle.subdivision``).
 """
 
 from __future__ import annotations
 
-import math
 import time
 from typing import NamedTuple, Optional, Tuple
 
@@ -43,42 +42,13 @@ import numpy as np
 import torch
 
 from stepth_tpu_torch.match.dense import to_tensor
+from stepth_tpu_torch.oracle.subdivision import (  # noqa: F401 (parity's static geometry)
+    axis_boundaries, default_max_splits, level_geometry, split_axes,
+)
 
 # bytes a gather of candidates may hold at once (indices, packed colours,
 # masks): phase A's offsets and phase B's leaves are chunked to it
 _GATHER_BYTES = 256 << 20
-
-
-def axis_boundaries(n: int, k: int) -> np.ndarray:
-    """Distinct level-k boundaries of [0, n): unique floor(i·n/2^k), i = 0 …
-    2^k, with the terminal n; len − 1 = number of blocks along the axis."""
-    if k >= 63:
-        k = 63
-    i = np.arange((1 << k) + 1, dtype=np.uint64)
-    b = (i * np.uint64(n)) >> np.uint64(k)
-    return np.unique(b).astype(np.int64)
-
-
-def split_axes(d: int, width_first: bool) -> Tuple[int, int]:
-    """(k_rows, k_cols): how many of the first d splits hit each axis."""
-    if width_first:
-        return d // 2, (d + 1) // 2
-    return (d + 1) // 2, d // 2
-
-
-def level_geometry(height: int, width: int, d: int, width_first: bool):
-    """Boundaries and per-pixel block indices for level d."""
-    kr, kc = split_axes(d, width_first)
-    rb = axis_boundaries(height, kr)
-    cb = axis_boundaries(width, kc)
-    row_ids = np.searchsorted(rb, np.arange(height), side="right") - 1
-    col_ids = np.searchsorted(cb, np.arange(width), side="right") - 1
-    return rb, cb, row_ids, col_ids
-
-
-def default_max_splits(height: int, width: int) -> int:
-    """ceil(log2(H·W)): the finest level."""
-    return int(math.ceil(math.log2(float(height * width))))
 
 
 class LeafMaps(NamedTuple):

@@ -35,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,15 +48,56 @@ _DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.in
 _MAX_DIMS = 6
 
 
+# the kinds of move between two slots of a mesh that :class:`Traffic` tallies
+KINDS = ("permute", "gather", "max")
+HEADER_BYTES = (2 + _MAX_DIMS) * 8  # a gather's shape header, when the caller states none
+
+
+def _tally() -> Dict[str, int]:
+    return dict.fromkeys(KINDS, 0)
+
+
 @dataclasses.dataclass
 class Traffic:
-    """Bytes this process sent to other processes (payloads and the
-    gather's headers); a plain counter callers may reset."""
+    """What this process moved; plain counters callers may reset.
+
+    * ``bytes_sent``: bytes sent to other processes (payloads and the
+      gather's headers).
+    * ``moved``, ``moves`` and ``serial``, by kind: the payload bytes and
+      the number of moves between two slots of a mesh, and how many of
+      those moves were hops of a relay chain. ``permute``: a halo slab
+      (:func:`stepth_tpu_torch.parallel.sharded.halo_exchange_rows`) or a
+      relayed carry (``sgm_sharded.relay_carry``, serial); ``gather``: a
+      block of a gathered result or a partial of bundle adjustment, onto
+      the gathering slot, or, across processes, this process's parts to
+      each other process (the shape header, where sent, adds its bytes);
+      ``max``: :func:`max_over_ranks`'s value to each other process.
+      Slots of one process count their moves even where both sit on one
+      device: those are the moves that would cross cards. Not counted:
+      copies of the inputs or of replicated state onto a slot's device.
+
+    :mod:`stepth_tpu_torch.parallel.comm_model` predicts all of these."""
 
     bytes_sent: int = 0
+    moved: Dict[str, int] = dataclasses.field(default_factory=_tally)
+    moves: Dict[str, int] = dataclasses.field(default_factory=_tally)
+    serial: Dict[str, int] = dataclasses.field(default_factory=_tally)
 
     def reset(self) -> None:
         self.bytes_sent = 0
+        for d in (self.moved, self.moves, self.serial):
+            d.update(_tally())
+
+    def move(self, kind: str, nbytes: int, serial: bool = False) -> None:
+        """One move of ``nbytes`` payload bytes between two slots."""
+        self.moved[kind] += nbytes
+        self.moves[kind] += 1
+        self.serial[kind] += int(serial)
+
+    def by_kind(self) -> Dict[str, Tuple[int, int, int]]:
+        """``{kind: (payload bytes, moves, relay hops)}``, as
+        ``comm_model.CommReport.by_kind`` predicts them."""
+        return {k: (self.moved[k], self.moves[k], self.serial[k]) for k in KINDS}
 
 
 traffic = Traffic()
@@ -223,13 +264,15 @@ class Recv(NamedTuple):
     tag: int
 
 
-def transfer(sends: Sequence[Send], recvs: Sequence[Recv]) -> List[torch.Tensor]:
+def transfer(sends: Sequence[Send], recvs: Sequence[Recv], serial: bool = False
+             ) -> List[torch.Tensor]:
     """Move slabs between slots of different processes: post every send and
     receive of this process at once (``batch_isend_irecv``), so a two-way
     halo exchange cannot deadlock, and wait for all of them. Returns the
     received tensors, in the order of ``recvs``, each on its device. Every
     process must post the matching side of each transfer; a peer that died
-    or hangs makes this raise."""
+    or hangs makes this raise. Each send is a ``permute`` move (``serial``:
+    a hop of a relay chain)."""
     if not sends and not recvs:
         return []
     out = [_wire_buffer(r.shape, r.dtype, r.device) for r in recvs]
@@ -237,7 +280,10 @@ def transfer(sends: Sequence[Send], recvs: Sequence[Recv]) -> List[torch.Tensor]
     ops += [dist.P2POp(dist.irecv, buf, r.src, tag=r.tag) for buf, r in zip(out, recvs)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    traffic.bytes_sent += sum(s.tensor.numel() * s.tensor.element_size() for s in sends)
+    for s in sends:
+        nbytes = s.tensor.numel() * s.tensor.element_size()
+        traffic.bytes_sent += nbytes
+        traffic.move("permute", nbytes, serial)
     return [buf.to(r.device) for buf, r in zip(out, recvs)]
 
 
@@ -276,6 +322,9 @@ def all_gather_ordered(parts: Sequence[torch.Tensor], owners: Sequence[int], dev
     bufs = [_wire_buffer((longest,), torch.uint8, payload.device) for _ in range(world)]
     dist.all_gather(bufs, _to_wire(payload))
     traffic.bytes_sent += nbytes[rank] * (world - 1)
+    for p in parts:
+        for _ in range(world - 1):
+            traffic.move("gather", p.numel() * p.element_size())
     by_rank = {rank: [p.to(device) for p in parts]}
     for r, (count, (shape, dtype)) in enumerate(zip(counts, metas)):
         if r != rank:
@@ -304,7 +353,8 @@ def _exchange_metas(parts: Sequence[torch.Tensor]):
         hdr[2:2 + parts[0].ndim] = torch.tensor(parts[0].shape)
     hdrs = [_wire_buffer(hdr.shape, hdr.dtype, torch.device("cpu")) for _ in range(world)]
     dist.all_gather(hdrs, _to_wire(hdr))
-    traffic.bytes_sent += hdr.numel() * 8 * (world - 1)
+    traffic.bytes_sent += HEADER_BYTES * (world - 1)
+    traffic.moved["gather"] += HEADER_BYTES * (world - 1)
     metas = []
     for h in hdrs:
         h = h.cpu()
@@ -324,4 +374,6 @@ def max_over_ranks(value: float) -> float:
         t = t.cuda()
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     traffic.bytes_sent += 8 * (dist.get_world_size() - 1)
+    for _ in range(dist.get_world_size() - 1):
+        traffic.move("max", 8)
     return float(t.item())

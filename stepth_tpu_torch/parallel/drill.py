@@ -55,7 +55,10 @@ rank 0; the one-process call runs on rank 0 alone).
 
 Each rank writes its result to ``DIR/<mode>_r<rank>.npz``, prints
 ``[rank R] <mode> drill OK`` and a line holding one JSON object of its
-numbers (launches per frame, bytes sent to the other processes, times).
+numbers (launches per frame, bytes sent to the other processes, the
+owners of the sharded axis' slots, times); ``comm_model.bytes_sent`` of
+the mode's ``FrameDrill.report`` (``ba_report`` for ``ba``) over those
+owners gives the bytes each rank sends.
 A failed check, or a peer lost anywhere but where the mode expects it,
 exits 1; the worker leaves with ``os._exit`` after flushing, since the
 process group's threads may block an orderly shutdown once a peer is gone.
@@ -71,6 +74,7 @@ import statistics
 import sys
 import time
 import traceback
+from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -80,7 +84,9 @@ from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.fusion import ba, geometry, resumable
 from stepth_tpu_torch.match import fused_dense, fused_post, fused_refine, fused_sgm
 from stepth_tpu_torch.ops import fused_remap
-from stepth_tpu_torch.parallel import distributed, sgm_pallas_sharded, sgm_sharded, sharded
+from stepth_tpu_torch.parallel import (
+    comm_model, distributed, sgm_pallas_sharded, sgm_sharded, sharded,
+)
 from stepth_tpu_torch.parallel.mesh import make_mesh
 from stepth_tpu_torch.utils import checkpoint
 
@@ -157,18 +163,29 @@ def random_pair(h: int, w: int, shift: int, seed: int, integer: bool = False):
     return left, np.roll(left, -shift, axis=1).astype(np.float32)
 
 
-def frame_drill(mode: str, size: str):
-    """``(mesh shape, inputs, call)`` of a match-type mode: ``call(left,
-    right, mesh)`` returns a ``MatchResult``."""
+class FrameDrill(NamedTuple):
+    """A match-type mode: the mesh shape, the inputs, ``call(left, right,
+    mesh)`` returning a ``MatchResult``, and the communication model of the
+    call over the mesh's ``tile`` axis."""
+
+    shape: Tuple[int, int]
+    pair: Tuple[np.ndarray, np.ndarray]
+    call: Callable
+    report: comm_model.CommReport
+
+
+def frame_drill(mode: str, size: str) -> FrameDrill:
+    """The :class:`FrameDrill` of a match-type mode at ``size``."""
     if mode == "match":
-        cfg = MatchConfig(num_disparities=16, window=9, cost="sad")
-        return (1, 8), random_pair(64, 96, 5, 7), (
-            lambda l, r, m: sharded.match_pair_sharded(l, r, cfg, m))
+        cfg, pair = MatchConfig(num_disparities=16, window=9, cost="sad"), random_pair(64, 96, 5, 7)
+        return FrameDrill((1, 8), pair, lambda l, r, m: sharded.match_pair_sharded(l, r, cfg, m),
+                          comm_model.comm_dense_sharded(cfg, *pair[0].shape, 8))
     if mode == "sgm":
         cfg = MatchConfig(num_disparities=16, window=5, lr_threshold=1.0)
-        sc = SGMConfig(directions=8)
-        return (1, 8), random_pair(64, 96, 5, 13), (
-            lambda l, r, m: sgm_sharded.match_pair_sgm_sharded(l, r, cfg, sc, m))
+        sc, pair = SGMConfig(directions=8), random_pair(64, 96, 5, 13)
+        return FrameDrill((1, 8), pair,
+                          lambda l, r, m: sgm_sharded.match_pair_sgm_sharded(l, r, cfg, sc, m),
+                          comm_model.comm_sgm_sharded(cfg, *pair[0].shape, 8, sc.directions))
     if mode == "sgm-pallas":
         if size == "small":
             cfg, sc, shape, pair = (MatchConfig(num_disparities=16, window=5, lr_threshold=1.0),
@@ -177,8 +194,10 @@ def frame_drill(mode: str, size: str):
             cfg, sc, shape, pair = (MatchConfig(num_disparities=64, window=5, cost="sad",
                                                 lr_threshold=1.0),
                                     SGMConfig(directions=4), (1, 4), make_pair(1088, 1920))
-        return shape, pair, (lambda l, r, m: sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
-            l, r, cfg, sc, m, exact=True))
+        return FrameDrill(shape, pair, lambda l, r, m: (
+            sgm_pallas_sharded.match_pair_sgm_pallas_sharded(l, r, cfg, sc, m, exact=True)),
+            comm_model.comm_sgm_sharded(cfg, *pair[0].shape, shape[1], sc.directions,
+                                        pallas=True))
     if mode == "hierarchical":
         if size == "small":
             cfg = MatchConfig(num_disparities=16, window=9, cost="census", census_window=5)
@@ -188,9 +207,16 @@ def frame_drill(mode: str, size: str):
             cfg = MatchConfig(num_disparities=128, window=9, cost="census")
             pyr, tile_rows, shape = PyramidConfig(levels=4, coarsest_disparities=16), 32, (1, 4)
             pair = make_pair(1024, 1920)
-        return shape, pair, (lambda l, r, m: sharded.match_hierarchical_sharded(
-            l, r, cfg, pyr, m, tile_rows=tile_rows, lr_check=True))
+        return FrameDrill(shape, pair, lambda l, r, m: sharded.match_hierarchical_sharded(
+            l, r, cfg, pyr, m, tile_rows=tile_rows, lr_check=True),
+            comm_model.comm_hierarchical_sharded(cfg, pyr, *pair[0].shape, shape[1], tile_rows))
     raise ValueError(f"not a match-type mode: {mode}")
+
+
+def ba_report(size: str) -> comm_model.CommReport:
+    """The communication model of the ``ba`` drill's solve on ``data=8``."""
+    s = BA_SIZES[size]
+    return comm_model.comm_ba_sharded(s["cams"], s["pts"], s["iters"], s["cg"], n=8)
 
 
 def entry_points():
@@ -381,7 +407,7 @@ def _report(mode: str, rank: int, numbers: dict) -> None:
 
 
 def _match_mode(mode: str, args, dev, rank: int, world: int) -> None:
-    shape, (left, right), call = frame_drill(mode, args.size)
+    shape, (left, right), call, _ = frame_drill(mode, args.size)
     mesh = distributed.global_mesh(*shape, devices=_slots(shape, dev, world))
     one = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
     pl, pr = (torch.from_numpy(_poison_rows(x, mesh, np.nan)).to(dev) for x in (left, right))
@@ -389,8 +415,9 @@ def _match_mode(mode: str, args, dev, rank: int, world: int) -> None:
     res, launches, nbytes = _driven(lambda: call(pl, pr, mesh), dev)
     _check_one_process(mode, res, lambda: call(cl, cr, one), args.check)
     numbers = {"shape": list(left.shape), "mesh": list(shape),
-               "slots_per_rank": shape[0] * shape[1] // world, "launches": launches,
-               "bytes_per_frame": nbytes, "valid_share": float(res.valid.float().mean())}
+               "slots_per_rank": shape[0] * shape[1] // world, "owners": list(mesh.ranks[0]),
+               "launches": launches, "bytes_per_frame": nbytes,
+               "valid_share": float(res.valid.float().mean())}
     if args.size == "full":
         med = float(res.disparity[50:-50, 100:-100].median())
         numbers["median_disparity"] = med
@@ -460,7 +487,8 @@ def _ba_mode(args, dev, rank: int, world: int) -> None:
     if not c < limit:
         raise AssertionError(f"ba: cost {c} not below {limit} (from {c0})")
     numbers = {"cams": size["cams"], "points": size["pts"], "lm_iters": size["iters"],
-               "cg_iters": size["cg"], "cost0": c0, "cost": c, "bytes_per_solve": nbytes}
+               "cg_iters": size["cg"], "cost0": c0, "cost": c,
+               "owners": [mesh.ranks[i][0] for i in range(8)], "bytes_per_solve": nbytes}
     if args.reps:
         t = _turns(lambda: ba.solve_sharded(poisoned, mesh, **kw),
                    lambda: ba.solve_sharded(problem, one, **kw), args.reps, dev)

@@ -39,12 +39,16 @@ def relay_carry(row: Row, carry, prev: int, i: int, shape, device):
     on ``i``'s device when this process owns ``i`` (received from ``prev``'s
     process if that is another), else None (sent on if this process owns
     ``prev``). Every process walks the same chain, so each hop's two ends
-    meet."""
+    meet. Each hop is a serial ``permute`` move of the traffic tally,
+    counted by the process that sends it."""
     src, dst = row.ranks[prev], row.ranks[i]
     if src == dst:
-        return carry.to(device, non_blocking=True) if row.is_local(i) else None
+        if not row.is_local(i):
+            return None
+        distributed.traffic.move("permute", carry.numel() * carry.element_size(), serial=True)
+        return carry.to(device, non_blocking=True)
     if row.is_local(prev):
-        distributed.transfer([distributed.Send(carry, dst, i)], [])
+        distributed.transfer([distributed.Send(carry, dst, i)], [], serial=True)
     elif row.is_local(i):
         return distributed.transfer([], [distributed.Recv(shape, torch.float32, device, src,
                                                           i)])[0]

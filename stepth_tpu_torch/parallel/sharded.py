@@ -51,6 +51,12 @@ def required_halo(cfg: MatchConfig) -> int:
     return r + 1
 
 
+def sublane_halo(cfg: MatchConfig, halo: Optional[int] = None) -> int:
+    """The halo of the sharded ``pallas`` path: ``halo`` (default
+    :func:`required_halo`) rounded up to 8 rows, as the reference's."""
+    return ((required_halo(cfg) if halo is None else halo) + 7) // 8 * 8
+
+
 def _mesh(mesh: Optional[Mesh]) -> Mesh:
     return make_mesh() if mesh is None else mesh
 
@@ -89,20 +95,26 @@ def scatter_rows(x, slots) -> Blocks:
             for i, d in enumerate(devices)]
 
 
-def gather_rows(blocks: Blocks, device, ranks=None) -> torch.Tensor:
+def gather_rows(blocks: Blocks, device, ranks=None, home: Optional[int] = 0) -> torch.Tensor:
     """The row blocks concatenated on ``device``. ``ranks``, the process
     owning each block, is given when the mesh spans processes: then every
     process gets every block (its list holds None at other processes'
-    slots)."""
+    slots). Else every block but the one at slot ``home`` (None: no block
+    sits at the gathering slot) is a ``gather`` move of the traffic tally."""
     if ranks is not None:
         blocks = distributed.all_gather_ordered([b for b in blocks if b is not None], ranks,
                                                 device)
+    else:
+        for i, b in enumerate(blocks):
+            if i != home:
+                distributed.traffic.move("gather", b.numel() * b.element_size())
     return torch.cat([b.to(device) for b in blocks])
 
 
-def _gather(mesh: Mesh, row: Row, blocks: Blocks) -> torch.Tensor:
-    """A row's blocks gathered on this process's first slot."""
-    return gather_rows(blocks, mesh.first, row.ranks if mesh.spans_processes else None)
+def _gather(mesh: Mesh, row: Row, blocks: Blocks, home: Optional[int] = 0) -> torch.Tensor:
+    """A row's blocks gathered on this process's first slot; ``home`` as in
+    :func:`gather_rows` (None for a data row other than the first)."""
+    return gather_rows(blocks, mesh.first, row.ranks if mesh.spans_processes else None, home)
 
 
 def _gray_blocks(x, row: Row) -> Blocks:
@@ -119,7 +131,8 @@ def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero",
     the owner of each block: slabs to and from a neighbour of another
     process go through one ``distributed.transfer`` (tag ``2i``: slot
     ``i``'s top, ``2i + 1``: its bottom), and the other processes' entries
-    are None."""
+    are None. Each slab from a neighbour is a ``permute`` move of the
+    traffic tally (the transfer counts those this process sends)."""
     if edge not in ("zero", "replicate"):
         raise ValueError(f"edge must be 'zero' or 'replicate', got {edge!r}")
     n = len(blocks)
@@ -135,6 +148,10 @@ def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero",
                 recvs.append(distributed.Recv(slab, x.dtype, x.device, row.ranks[j], tag_in))
                 sends.append(distributed.Send(mine, row.ranks[j], tag_out))
     got = dict(zip((r.tag for r in recvs), distributed.transfer(sends, recvs)))
+    def near(slab: torch.Tensor, device) -> torch.Tensor:
+        distributed.traffic.move("permute", slab.numel() * slab.element_size())
+        return slab.to(device, non_blocking=True)
+
     out = []
     for i, x in enumerate(blocks):
         if x is None:
@@ -142,15 +159,13 @@ def halo_exchange_rows(blocks: Blocks, halo: int, edge: str = "zero",
             continue
         rows = (halo,) + tuple(x.shape[1:])
         if i > 0:
-            top = (blocks[i - 1][-halo:].to(x.device, non_blocking=True)
-                   if local(i - 1) else got[2 * i])
+            top = near(blocks[i - 1][-halo:], x.device) if local(i - 1) else got[2 * i]
         elif edge == "replicate":
             top = x[:1].expand(rows)
         else:
             top = x.new_zeros(rows)
         if i < n - 1:
-            bot = (blocks[i + 1][:halo].to(x.device, non_blocking=True)
-                   if local(i + 1) else got[2 * i + 1])
+            bot = near(blocks[i + 1][:halo], x.device) if local(i + 1) else got[2 * i + 1]
         elif edge == "replicate":
             bot = x[-1:].expand(rows)
         else:
@@ -245,10 +260,11 @@ def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
         raise ValueError(f"H={h} not divisible by tile axis {nt}")
     out = []
     for k in range(b):
-        row = mesh.row(k // (b // nd))
+        d = k // (b // nd)
+        row = mesh.row(d)
         disps, _, _ = _match_tiles(row, _gray_blocks(lefts[k], row),
                                    _gray_blocks(rights[k], row), cfg, halo, h)
-        out.append(_gather(mesh, row, disps))
+        out.append(_gather(mesh, row, disps, 0 if d == 0 else None))
     return torch.stack(out)
 
 
@@ -266,8 +282,7 @@ def match_pair_sharded_pallas(left, right, cfg: MatchConfig = MatchConfig(),
     Equals ``fused_dense.match_pair_fused``."""
     raw = fused_dense.raw_match_plain if plain else fused_dense.raw_match
     mesh = _mesh(mesh)
-    halo = required_halo(cfg) if halo is None else halo
-    halo = (halo + 7) // 8 * 8  # the reference's sublane-aligned halo
+    halo = sublane_halo(cfg, halo)
     row = mesh.row(0)
     lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
     h = left.shape[0]
@@ -472,6 +487,9 @@ def match_batch_hierarchical_sharded(
             dev = mesh.devices[slot[0]][0]
             res = match(_on(lefts[k], dev), _on(rights[k], dev), cfg, pyr, tile_rows,
                         lr_check, coarse_backend, sgm=sgm)
+            if slot != (0, 0) and not mesh.spans_processes:
+                for f in res:  # a frame of another data row, onto the first slot
+                    distributed.traffic.move("gather", f.numel() * f.element_size())
             frames.append([f.to(mesh.first) for f in res])
     if mesh.spans_processes:
         owners = [mesh.ranks[d][t] for d, t in slots]

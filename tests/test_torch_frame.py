@@ -12,7 +12,7 @@ import stepth_tpu_torch
 from stepth_tpu_torch import DepthFrame, MaskFrame
 from stepth_tpu_torch.core import io
 
-from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
+from tests.torch_port import cuda, gxx, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 CPU = "cpu"
 
@@ -103,9 +103,9 @@ def test_depth_frame_methods(rng, tmp_path):
         got.depth = got.depth  # frozen
 
 
-def test_load_depth_from_additional(rng, tmp_path):
-    """parity (the default) and a StereoModel backend, as
-    tests/test_ops_depth.py:32-45 drives them; "native" raises."""
+def test_load_depth_from_additional(rng, tmp_path, gxx):
+    """parity (the default), a StereoModel backend and "native" (the C++
+    host engine), as tests/test_ops_depth.py:32-45 drives them."""
     tex = rng.uniform(0, 255, (48, 132, 3)).astype(np.uint8)
     main, add = tex[:, :128], tex[:, 4:]
     ref = stepth_tpu.DepthFrame.from_array(main)
@@ -119,8 +119,8 @@ def test_load_depth_from_additional(rng, tmp_path):
     ref_io.save(path, add)
     _eq(got.open_depth_from_additional(path, (36,) * 3).depth,
         ref.open_depth_from_additional(path, (36,) * 3).depth)
-    with pytest.raises(ValueError, match="native"):
-        got.load_depth_from_additional(add, (36,) * 3, method="native")
+    _eq(got.load_depth_from_additional(add, (36,) * 3, method="native").depth,
+        ref.load_depth_from_additional(add, (36,) * 3, method="native").depth)
 
 
 def test_mask_frame_loading(rng, tmp_path):

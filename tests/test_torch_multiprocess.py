@@ -43,7 +43,7 @@ from stepth_tpu.fusion import geometry as ref_geo
 from stepth_tpu.match import dense as ref_dense
 from stepth_tpu.match import sgm as ref_sgm
 from stepth_tpu_torch.fusion import ba
-from stepth_tpu_torch.parallel import drill
+from stepth_tpu_torch.parallel import comm_model, drill
 from stepth_tpu_torch.parallel.mesh import make_mesh
 from stepth_tpu_torch.utils import supervisor
 
@@ -109,9 +109,19 @@ def _numbers(out, mode):
 def _one_process(mode):
     """The drill's call on a one-process mesh of its shape, its inputs and
     the inputs themselves."""
-    shape, (left, right), call = drill.frame_drill(mode, "small")
+    shape, (left, right), call, _ = drill.frame_drill(mode, "small")
     one = make_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
     return call(torch.from_numpy(left), torch.from_numpy(right), one), left, right
+
+
+def _check_bytes(outs, mode, key="bytes_per_frame"):
+    """Each rank's bytes sent, as the port's communication model gives them
+    for the drill's slot owners."""
+    report = drill.ba_report("small") if mode == "ba" else drill.frame_drill(mode, "small").report
+    for r in range(2):
+        numbers = _numbers(outs[r], mode)
+        assert numbers["owners"] == [0] * 4 + [1] * 4
+        assert numbers[key] == comm_model.bytes_sent(report, numbers["owners"], r), report.table()
 
 
 def _check_ranks_bit_equal(mode, out, want):
@@ -127,7 +137,7 @@ def test_two_process_match_and_sgm(match_drills, mode):
     outs, tmp_path = match_drills
     for r in range(2):
         assert f"[rank {r}] {mode} drill OK" in outs[r]
-        assert _numbers(outs[r], mode)["bytes_per_frame"] > 0
+    _check_bytes(outs, mode)
     want, left, right = _one_process(mode)
     _check_ranks_bit_equal(mode, tmp_path, want)
     if mode == "match":
@@ -164,6 +174,7 @@ def test_two_process_kernel_paths(match_drills, mode):
     outs, tmp_path = match_drills
     for r in range(2):
         assert f"[rank {r}] {mode} drill OK" in outs[r]
+    _check_bytes(outs, mode)
     want, _, _ = _one_process(mode)
     assert 0.9 < float(want.valid.float().mean()) < 1.0
     _check_ranks_bit_equal(mode, tmp_path, want)
@@ -197,6 +208,7 @@ def test_two_process_distributed_ba(match_drills):
     outs, tmp_path = match_drills
     for r in range(2):
         assert f"[rank {r}] ba drill OK" in outs[r]
+    _check_bytes(outs, "ba", "bytes_per_solve")
     size = drill.BA_SIZES["small"]
     problem = drill.ba_problem(size["cams"], size["pts"], size["seed"], size["sigma"])
     want = ba.solve_sharded(problem, make_mesh(8, 1, devices=["cpu"] * 8), iters=size["iters"],

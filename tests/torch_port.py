@@ -4,6 +4,8 @@ The port's tests feed the same numpy inputs, made from a seed, to a JAX
 function of ``stepth_tpu`` and to its twin in ``stepth_tpu_torch``.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -37,6 +39,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture()
+def gxx():
+    """Skips the test where there is no ``g++`` to build the native host
+    engine (``stepth_tpu_torch.native``)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the native host engine")
 
 
 @pytest.fixture(autouse=True, scope="module")
