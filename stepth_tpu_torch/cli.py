@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import sys
 
@@ -98,12 +99,18 @@ def _cmd_video(args) -> int:
     seeded by the previous frame's disparity; a chunk starts at a keyframe).
     ``--shard-tiles N`` runs the row-tile-sharded temporal twin
     (``parallel.sharded.match_temporal_sharded``) over N devices: the
-    visible cards, or N CPU devices under ``--device cpu``."""
+    visible cards, or N CPU devices under ``--device cpu``. ``--trace-dir
+    DIR`` profiles the stream (``utils.tracing.device_trace``: the
+    program's ``stepth/`` spans beside the card's kernels and copies in
+    ``DIR/trace.json``) and writes what the stream added to the counters
+    (``utils.tracing.counters()``: the loader's takes and starved takes) to
+    ``DIR/counters.json``."""
     from stepth_tpu_torch.config import MatchConfig, PyramidConfig
     from stepth_tpu_torch.core import io
     from stepth_tpu_torch.core.loader import PrefetchLoader
     from stepth_tpu_torch.match import dense
     from stepth_tpu_torch.models import StereoModel
+    from stepth_tpu_torch.utils import tracing
 
     lefts, rights = _expand(args.left), _expand(args.right)
     if len(lefts) != len(rights):
@@ -157,11 +164,17 @@ def _cmd_video(args) -> int:
         n_done += res.disparity.shape[0]
         chunk.clear()
 
-    for pair in loader:
-        chunk.append(pair)
-        if len(chunk) == args.chunk:
-            flush()
-    flush()
+    counted = tracing.counters()
+    with tracing.device_trace(args.trace_dir):
+        for pair in loader:
+            chunk.append(pair)
+            if len(chunk) == args.chunk:
+                flush()
+        flush()
+    if args.trace_dir is not None:
+        added = {k: v - counted.get(k, 0) for k, v in tracing.counters().items()}
+        with open(os.path.join(args.trace_dir, "counters.json"), "w") as f:
+            json.dump(added, f, indent=1, sort_keys=True)
     print(f"wrote {n_done} depth frames to {args.out} ({args.format})")
     return 0
 
@@ -226,6 +239,9 @@ def main(argv=None) -> int:
                    help="png: u8 depth frames; npz: f32 disparity + validity")
     v.add_argument("--shard-tiles", type=int, default=0, dest="shard_tiles",
                    help="row-tile-shard each frame over this many devices")
+    v.add_argument("--trace-dir", default=None, dest="trace_dir",
+                   help="profile the stream: DIR/trace.json (a Chrome trace) and "
+                   "DIR/counters.json (the loader's takes and starved takes)")
     v.set_defaults(fn=_cmd_video)
 
     f = sub.add_parser("foreground", help="README foreground-extraction flow")

@@ -9,6 +9,10 @@ leaves of its result into tensors there: on a CUDA device it stages them in
 pinned host memory and copies them with ``non_blocking=True`` on a stream of
 its own, and the consumer's stream waits for that copy (an event) before the
 item is yielded, so no tensor is seen before its copy is done.
+
+The consumer counts each item it takes (``loader.takes`` in
+``utils.tracing.counters()``) and each take that found the item not yet
+made (``loader.starved``), counted when it starts to wait.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Any, Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from stepth_tpu_torch.utils import tracing
 
 
 def _map_arrays(fn: Callable, out: Any) -> Any:
@@ -138,15 +144,20 @@ class PrefetchLoader:
             t.start()
         try:
             for i in range(n):
-                with cv:
-                    while i not in results and not errors:
-                        cv.wait(timeout=0.1)
-                    if errors:
-                        raise errors[0]
-                    out, done = results.pop(i)
-                    state["consumed"] = i + 1
-                    cv.notify_all()
-                yield self._ready(out, done)
+                with tracing.span("stepth/loader/take"):
+                    with cv:
+                        if i not in results and not errors:
+                            tracing.count("loader.starved")
+                            while i not in results and not errors:
+                                cv.wait(timeout=0.1)
+                        if errors:
+                            raise errors[0]
+                        out, done = results.pop(i)
+                        state["consumed"] = i + 1
+                        cv.notify_all()
+                    item = self._ready(out, done)
+                tracing.count("loader.takes")
+                yield item
         finally:
             with cv:
                 if not errors:

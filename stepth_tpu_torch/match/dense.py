@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from stepth_tpu_torch.config import MatchConfig
+from stepth_tpu_torch.utils import tracing
 
 
 class MatchResult(NamedTuple):
@@ -101,6 +102,7 @@ def census_planes(gray: torch.Tensor, window: int = 7) -> torch.Tensor:
     return torch.stack(planes).contiguous()
 
 
+@tracing.annotate("stepth/census")
 def census_pair(left: torch.Tensor, right: torch.Tensor, window: int = 7):
     """Census planes [P, H, W] of both views of a pair, in one pass."""
     planes = census_planes(torch.stack([left, right]), window)

@@ -31,6 +31,7 @@ import torch
 from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.match import dense, fused_dense, fused_post, fused_sgm, pyramid
+from stepth_tpu_torch.utils import tracing
 
 _BIG = 1e30
 _TW = 128  # plan tile width (part of the output contract)
@@ -110,6 +111,7 @@ def tile_windows_from_prior(
     return bases, nw
 
 
+@tracing.annotate("stepth/plan")
 def plan_level(
     prior: torch.Tensor, tile_rows: int, max_base: int, radius: int, max_windows: int
 ):
@@ -329,6 +331,7 @@ def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
     return out, emit_right(packed, bases, tile_rows, radius)
 
 
+@tracing.annotate("stepth/refine")
 def _refine_level(planned_fn, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
                   g_row0, g_h, lr, max_windows):
     if prior.shape != left_g.shape:
@@ -396,6 +399,7 @@ PLAIN = _Path(fused_dense.raw_match_plain, fused_sgm.match_pair_sgm_plain, refin
               fused_post.median3_plain)
 
 
+@tracing.annotate("stepth/post")
 def _post(path: _Path, disp, disp_r, cfg: MatchConfig, max_base: int, lr_check: bool):
     """The epilogue: LR check against ``disp_r`` (threshold
     ``cfg.lr_threshold``, 1.0 when unset; ``D = max_base``), occlusion fill
@@ -430,11 +434,14 @@ def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
         subpixel=cfg.subpixel,
         lr_threshold=None,
     )
-    if coarse_backend == "wta":
-        disp = path.match(lefts[-1], rights[-1], coarse_cfg, tile_rows=min(tile_rows, 16))[0]
-    else:  # the whole SGM matcher, epilogue included
-        disp = path.sgm(lefts[-1], rights[-1], coarse_cfg, SGMConfig() if sgm is None else sgm,
-                        tile_rows=min(tile_rows, 16)).disparity
+    with tracing.span("stepth/coarse"):
+        if coarse_backend == "wta":
+            disp = path.match(lefts[-1], rights[-1], coarse_cfg,
+                              tile_rows=min(tile_rows, 16))[0]
+        else:  # the whole SGM matcher, epilogue included
+            disp = path.sgm(lefts[-1], rights[-1], coarse_cfg,
+                            SGMConfig() if sgm is None else sgm,
+                            tile_rows=min(tile_rows, 16)).disparity
     max_base = pyr.coarsest_disparities
     disp_r = None
     for lvl in range(pyr.levels - 2, -1, -1):

@@ -55,6 +55,7 @@ from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig, SGMConfig
 from stepth_tpu_torch.match import dense, fused_dense, fused_post
 from stepth_tpu_torch.match import sgm as sgm_mod
+from stepth_tpu_torch.utils import tracing
 
 _SRC = "stepth_tpu_torch/csrc/fused_sgm.cu"
 _REF = "stepth_tpu/match/pallas_sgm.py"
@@ -390,22 +391,25 @@ def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
     dtype = volume_dtype(sgm)
     lg = dense.grayscale(left, device)
     rg = dense.grayscale(right, device)
-    vol = path.volume(lg, rg, cfg, dtype)
+    with tracing.span("stepth/sgm/volume"):
+        vol = path.volume(lg, rg, cfg, dtype)
     p1, p2 = sgm_mod.penalties(cfg, sgm)
-    if sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D:
-        acc = None
-        for axis, reverse, shift in dirs[:-1]:
+    fused_wta = sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D
+    acc = None
+    for axis, reverse, shift in dirs[:-1] if fused_wta else dirs:
+        with tracing.span("stepth/sgm/scan"):
             acc = path.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
-        disp, disp_r, cbest, uok = path.scan_wta(vol, acc, p1, p2, cfg)
+    if fused_wta:
+        with tracing.span("stepth/sgm/scan_wta"):
+            disp, disp_r, cbest, uok = path.scan_wta(vol, acc, p1, p2, cfg)
+    else:  # K9, and K4's LR check inside its wrapper
+        disp, _, cbest, uok = path.wta(acc, cfg)
+    with tracing.span("stepth/post"):
         valid = uok > 0.5
-        if cfg.lr_threshold is not None:
+        if fused_wta and cfg.lr_threshold is not None:
             valid = valid & path.lr(disp, disp_r, float(cfg.lr_threshold),
                                     cfg.num_disparities)
-    else:
-        agg = _aggregate(path.scan, vol, sgm, p1, p2)
-        disp, _, cbest, valid_f = path.wta(agg, cfg)
-        valid = valid_f > 0.5
-    disp = path.median(path.fill(disp, valid))
+        disp = path.median(path.fill(disp, valid))
     return dense.MatchResult(disparity=disp, valid=valid, cost=cbest)
 
 

@@ -31,6 +31,8 @@ from stepth_tpu_torch.config import (
     SGMConfig,
 )
 from stepth_tpu_torch.match import dense
+from stepth_tpu_torch.utils import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class StereoModel:
@@ -47,6 +49,7 @@ class StereoModel:
     # LR switch from match.lr_threshold.
     lr_check: bool = False
 
+    @tracing.annotate("stepth/call")
     def __call__(self, left, right, device=None) -> dense.MatchResult:
         """Match a rectified pair: gray [H, W] or RGB [H, W, 3] tensors (the
         device is theirs), or arrays (on ``device``, by default ``"cuda"``)."""
@@ -126,6 +129,7 @@ class StereoModel:
             )
         from stepth_tpu_torch.match import fused_refine
 
+        @tracing.annotate("stepth/call")
         def run(lefts, rights, device=None) -> dense.MatchResult:
             return fused_refine.match_temporal_fused(
                 lefts, rights, self.match, self.pyramid,

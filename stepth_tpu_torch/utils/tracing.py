@@ -2,8 +2,17 @@
 
 Named spans in ``torch.profiler`` traces (``torch.profiler.record_function``
 in place of ``jax.profiler.TraceAnnotation``), a wall-clock stage timer
-that waits for the card's work when asked, and a device trace around a
-region, written as a Chrome trace.
+that waits for the card's work when asked, a device trace around a region,
+written as a Chrome trace, and process-wide counters.
+
+A span costs one check of the profiler's state unless a ``torch.profiler``
+records on the calling thread; then it is a ``record_function`` and lands
+in the same trace as the CUDA kernels, copies and runtime calls, on one
+clock. (Threads the profiler did not start from record nothing, so a span
+on a worker thread is never seen.) The program's spans are named
+``stepth/...`` and sit on its served path: ``stepth/call`` around a model
+call, then ``coarse``, ``census``, ``plan``, ``refine``, ``post``,
+``sgm/volume``, ``sgm/scan``, ``sgm/scan_wta`` and ``loader/take``.
 """
 
 from __future__ import annotations
@@ -18,6 +27,33 @@ from typing import Dict, Optional
 import torch
 
 from stepth_tpu_torch.utils.debug import named_leaves
+
+_OFF = contextlib.nullcontext()  # shared: entering it does nothing
+_profiling = torch._C._autograd._profiler_enabled
+_counters: Dict[str, int] = defaultdict(int)
+
+
+def span(name: str):
+    """A context naming a region ``name`` in a ``torch.profiler`` trace
+    while a profiler records on this thread; otherwise a shared no-op."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``: a plain add, always
+    on (one thread counts each name, so no lock)."""
+    _counters[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 def _synchronize(tree) -> None:
@@ -43,7 +79,7 @@ class StageTimes:
         tensors of ``block_on`` (a tree of tensors, read when the stage
         ends) are synchronised, so their work counts."""
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
         if block_on is not None:
             _synchronize(block_on)
@@ -77,12 +113,12 @@ def device_trace(log_dir: Optional[str] = None):
 
 
 def annotate(name: str):
-    """Decorator: wrap a function in a named profiler span."""
+    """Decorator: run a function inside :func:`span` ``(name)``."""
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            with torch.profiler.record_function(name):
+            with span(name):
                 return fn(*args, **kwargs)
 
         return wrapped

@@ -3,6 +3,9 @@ cpu``): the counterparts of ``tests/test_cli_debug.py``'s ``stereo`` and
 ``video`` cases, and ``depth`` and ``foreground`` against the JAX
 package's outputs."""
 
+import collections
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -105,6 +108,22 @@ def test_video_png_frames(tmp_path, rng):
     files = sorted(out.iterdir())
     assert [f.name for f in files] == ["depth_00000.png", "depth_00001.png"]
     assert io.open_luma(str(files[1])).shape == (64, 96)
+
+
+def test_video_trace_dir(tmp_path, rng):
+    """--trace-dir profiles the stream: the program's spans in the Chrome
+    trace, and what the stream added to the loader's counters."""
+    ldir, rdir = _clip(tmp_path, rng, 2)
+    trace = tmp_path / "trace"
+    args = ["video", str(ldir), str(rdir), str(tmp_path / "o"), "--trace-dir", str(trace)]
+    assert cli.main(CPU + args + VIDEO) == 0
+    with open(trace / "trace.json") as fh:
+        names = collections.Counter(e.get("name") for e in json.load(fh)["traceEvents"])
+    assert names["stepth/call"] == 1 and names["stepth/loader/take"] == 2
+    assert names["stepth/refine"] == 2 and names["stepth/post"] == 2
+    with open(trace / "counters.json") as fh:
+        counted = json.load(fh)
+    assert counted["loader.takes"] == 2 and 0 <= counted.get("loader.starved", 0) <= 2
 
 
 def test_video_frame_count_mismatch(tmp_path, rng):
