@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    paths' shapes (1080p, D=128 effective), on the smooth ``make_pair``
    scene and on the ``box`` edge scene:
    a. SAD: K1 at the 135×240 coarse level with D=16, K2 at the three refine
-      levels (priors from the plain pipeline), K3 at 1080×1920;
+      levels (priors from the plain pipeline), each level's plan (K2 plan)
+      against the plain plan of the same padded prior, K3 at 1080×1920;
    b. census (window 7, two planes): K1 at the coarse level, K2 at the
       three levels, level 0 with the right view (``lr=True``, both
       outputs), the right-view emit on a synthetic buffer;
@@ -957,8 +958,8 @@ def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
         # and epilogue
         n = len(FLOW_SHIFTS)
         want_launches = {k: 0 for k in launches}
-        want_launches.update({"K1": 3, "K2": 3 * 3 + n - 3, "K2 emit": n, "K3": n, "K4": n,
-                              "K5": n})
+        want_launches.update({"K1": 3, "K2": 3 * 3 + n - 3, "K2 plan": 3 * 3 + n - 3,
+                              "K2 emit": n, "K3": n, "K4": n, "K5": n})
         print(f"  launches for {n} frames: {launches}")
         if rc != 0 or launches != want_launches:
             raise AssertionError(f"cli video: rc {rc}, launches {launches} != {want_launches}")
@@ -1436,6 +1437,9 @@ def mapping_flows(dev, card, drive, err):
         for k in ("K1", "K2", "K2 emit", "K3", "K4", "K5"):
             if launches[k] < 1:
                 raise AssertionError(f"mapping clip: {k} not launched")
+        if launches["K2 plan"] != launches["K2"]:
+            raise AssertionError(f"mapping clip: K2 plan launched {launches['K2 plan']} times, "
+                                 f"K2 {launches['K2']}")
         print("  launches on the clip: " + ", ".join(f"{k} {v}" for k, v in launches.items()
                                                      if v))
         s = out["stages"].summary()
@@ -1561,7 +1565,7 @@ def mapping_flows(dev, card, drive, err):
     t_tv = time.perf_counter() - t0
     print("  launches: " + ", ".join(f"{k} {v}" for k, v in tv_launches.items() if v)
           + f"; {t_tv * 1e3:.4f} ms end to end (first call of the flow), card: {card}")
-    for k, n in (("K11", 2), ("K1", 1), ("K2", 2), ("K3", 1)):
+    for k, n in (("K11", 2), ("K1", 1), ("K2", 2), ("K2 plan", 2), ("K3", 1)):
         if tv_launches[k] != n:
             raise AssertionError(f"two-view: {k} launched {tv_launches[k]} times, not {n}")
     # K11 and the matcher's kernels at the flow's shapes, against their plain
@@ -1630,7 +1634,7 @@ DRILL_DIE_AT = 5  # 8d: rank 1 exits after the first checkpointed segment
 # launches per frame and rank: 8a production on 2 of 4 shards, 8b sgm-pallas
 # 4 directions on 2 of 4 shards (K10: ↓y and ↑y on each)
 DRILL_LAUNCHES = {
-    "hierarchical": {"K1": 2, "K2": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2},
+    "hierarchical": {"K1": 2, "K2": 6, "K2 plan": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2},
     "sgm-pallas": {"K6": 2, "K7": 4, "K10": 4, "K9": 2, "K4": 2, "K5": 2, "K3": 2},
 }
 
@@ -1733,7 +1737,9 @@ def multiprocess_drills(card):
                 for k, v in got.items():
                     launches[r][k] = launches[r].get(k, 0) + v
                 checked = nums[r][mode]["paired"]
-                if any(checked.get(k, [0])[0] < v for k, v in DRILL_LAUNCHES[mode].items()):
+                # the plan runs inside the refine stage, which K2's calls count
+                if any(checked.get("K2" if k == "K2 plan" else k, [0])[0] < v
+                       for k, v in DRILL_LAUNCHES[mode].items()):
                     raise AssertionError(f"drill {mode}: rank {r} checked {checked}")
             tag = "8a" if mode == "hierarchical" else "8b"
             print(f"  {tag}. {mode} {tuple(n0['shape'])} on a {n0['mesh'][0]}x{n0['mesh'][1]} "
@@ -1941,10 +1947,10 @@ def main() -> int:
     # beside phases 3-8
     oracle_run = start_oracle_depth()
 
-    KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
-               "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5,
-               "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9,
-               "K10": fused_sgm.K10, "K11": fused_remap.K11}
+    KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
+               "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3, "K4": fused_post.K4,
+               "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8,
+               "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
     NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}  # off the WTA paths
     errs = {n: 0.0 for n in KERNELS}
     times = {}
@@ -2019,6 +2025,8 @@ def main() -> int:
         max_base = pyr.coarsest_disparities
         multi = 0
         k2_ms = k2_plain_ms = plan_ms = k2_only = 0.0
+        plan_dev = plan_plain = 0.0  # K2_PLAN alone, the plain plan
+        plan_bytes = 0  # K2_PLAN's bytes over the three levels, for its bound
         planes = 2 if cfg.cost == "census" else 1  # census window 7: 48 bits
         cand = k2_bytes = 0  # K2's work over the three levels, for its bound
         for lvl in range(pyr.levels - 2, -1, -1):
@@ -2029,6 +2037,33 @@ def main() -> int:
             nwin = pyr.final_windows if lvl == 0 else pyr.refine_windows
             lr = lr0 and lvl == 0
             bases, nw, tr = fused_refine.plan_level(prior, 64, max_base, radius, nwin)
+            # K2_PLAN against the plain plan of the same padded prior
+            padded = fused_refine.pad_prior(prior, tr)
+            want_plan = fused_refine.tile_windows_from_prior(padded, tr, max_base, radius, nwin)
+            torch.cuda.synchronize()
+            if not (torch.equal(bases, want_plan[0]) and torch.equal(nw, want_plan[1])):
+                raise AssertionError(f"{scene} {cfg.cost} K2 plan level {lvl}: not bit-equal")
+            err("K2 plan", 0.0)
+            mean = fused_refine._tile_mean(padded, tr)
+            plan_out = (torch.empty_like(bases), torch.empty_like(nw))
+            cap = fused_refine._window_cap(max_base, radius, nwin)
+
+            def plan_alone():
+                fused_refine.K2_PLAN.launch(
+                    dev, padded.data_ptr(), mean.data_ptr(), plan_out[0].data_ptr(),
+                    plan_out[1].data_ptr(), *padded.shape, tr, bases.shape[-1], max_base,
+                    radius, int(cap <= 1))
+
+            pdev = device_ms(plan_alone)
+            pplain = cuda_ms(lambda: fused_refine.tile_windows_from_prior(
+                padded, tr, max_base, radius, nwin))
+            pbytes = 4 * (padded.numel() + mean.numel() + bases.numel() + nw.numel())
+            pbound = bound(pbytes, 0)[0]
+            print(f"    level {lvl} plan {tuple(padded.shape)} K={bases.shape[-1]}: bit-equal; "
+                  f"K2_PLAN {pdev:.4f} ms on the device, bound {pbound:.4f} ms (bytes), "
+                  f"plain plan {pplain:.4f} ms")
+            plan_dev, plan_plain, plan_bytes = (plan_dev + pdev, plan_plain + pplain,
+                                                plan_bytes + pbytes)
             args_l = (lefts[lvl], rights[lvl], bases, nw, cfg, radius, tr)
             got = fused_refine.refine_planned(*args_l, lr=lr)
             want = fused_refine.refine_planned_plain(*args_l, lr=lr)
@@ -2076,6 +2111,9 @@ def main() -> int:
             disp, disp_r = want if lr else (want, None)
         print(f"  {scene} {cfg.cost} K2 per frame (3 levels): kernel {k2_ms:.4f} ms, "
               f"plain {k2_plain_ms:.4f} ms, plan {plan_ms:.4f} ms; tiles nw>1: {multi}")
+        print(f"  {scene} {cfg.cost} K2_PLAN per frame (3 levels): {plan_dev:.4f} ms on the "
+              f"device, bound {bound(plan_bytes, 0)[0]:.4f} ms, plain plan {plan_plain:.4f} ms")
+        plans[(scene, cfg.cost)] = (plan_dev, plan_bytes, plan_ms, plan_plain)
         if planes_of is not None:
             kernel_only[(scene, cfg.cost, "K2")] = k2_only
             print(f"  {scene} {cfg.cost} K2 alone on precomputed planes, 3 levels: "
@@ -2089,6 +2127,7 @@ def main() -> int:
     print("== kernels vs plain versions on the card")
     work = {}  # (scene, cost) -> K2's bound over three levels
     kernel_only = {}  # (scene, cost, kernel) -> device ms of K1 or K2 on precomputed planes
+    plans = {}  # (scene, cost) -> K2_PLAN's device ms, bytes, plan_level ms, plain ms (3 levels)
     device = {}  # kernel -> device ms per launch at the shape its "ms" was timed at
     prod_maps = {}
     for scene, (left, right) in pairs.items():
@@ -2110,6 +2149,8 @@ def main() -> int:
         if scene == "make_pair":
             times["K1 sad, 135x240 D=16"], times["K2 sad, 3 levels"] = k1, k2
             times["K1"], times["K2"] = k1_c, k2_c
+            p = plans[(scene, "census")]
+            device["K2 plan"], times["K2 plan"] = p[0], (p[2], p[3])
             times["K3"] = (cuda_ms(lambda: fused_post.median3_fused(disp)),
                            cuda_ms(lambda: fused_post.median3_plain(disp)))
             device["K3"] = device_ms(lambda: fused_post.median3_fused(disp))
@@ -2565,7 +2606,8 @@ def main() -> int:
     bl, br = (torch.as_tensor(a, device=dev) for a in pairs["box"])
     res, launches = drive(lambda: model(left, right))
     print(f"  launches per frame: {launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0, **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0,
+                     **NOT_WTA}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches}")
 
@@ -2609,7 +2651,8 @@ def main() -> int:
         l, r, census, pyr, lr_check=True))
     res, prod_launches = drive(lambda: prod(left, right))
     print(f"  launches per frame: {prod_launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1,
+                     **NOT_WTA}
     if prod_launches != want_launches:
         raise AssertionError(f"launch counts {prod_launches} != {want_launches}")
     check_median("production", res.disparity)
@@ -2624,7 +2667,8 @@ def main() -> int:
     flag = flagship()
     res, flag_launches = drive(lambda: flag(left, right))
     print(f"  launches per frame: {flag_launches}")
-    want_launches = {"K1": 1, "K2": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 0, "K2 plan": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1,
+                     **NOT_WTA}
     if flag_launches != want_launches:
         raise AssertionError(f"launch counts {flag_launches} != {want_launches}")
     check_median("flagship", res.disparity)
@@ -2641,7 +2685,8 @@ def main() -> int:
     run = prod.video(keyframe_interval=4)
     vres, video_launches = drive(lambda: run(clip_l, clip_r))
     print(f"  launches for 2 keyframes + 3 seeded frames: {video_launches}")
-    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5, **NOT_WTA}
+    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 plan": 2 * 3 + 3, "K2 emit": 5, "K3": 5,
+                     "K4": 5, "K5": 5, **NOT_WTA}
     if video_launches != want_launches:
         raise AssertionError(f"launch counts {video_launches} != {want_launches}")
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True)
@@ -2655,7 +2700,8 @@ def main() -> int:
         fused_refine.FUSED, clip_l[1], clip_r[1], vres.disparity[0], census, pyr,
         lr_check=True))
     print(f"  launches per seeded frame: {seeded_launches}")
-    want_launches = {"K1": 0, "K2": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1, **NOT_WTA}
+    want_launches = {"K1": 0, "K2": 1, "K2 plan": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1,
+                     **NOT_WTA}
     if seeded_launches != want_launches:
         raise AssertionError(f"launch counts {seeded_launches} != {want_launches}")
 
@@ -2673,9 +2719,10 @@ def main() -> int:
     sgm_paths = {}
     for tag, cfg, lr_check, want in (
             ("path 1, hierarchical-sgm sad", sad, False,
-             {"K6": 1, "K7": 3, "K8": 1, "K5": 1, "K3": 2, "K2": 3}),
+             {"K6": 1, "K7": 3, "K8": 1, "K5": 1, "K3": 2, "K2": 3, "K2 plan": 3}),
             ("path 2, hierarchical-sgm production", census, True,
-             {"K6": 1, "K7": 3, "K8": 1, "K5": 2, "K3": 2, "K2": 3, "K2 emit": 1, "K4": 1})):
+             {"K6": 1, "K7": 3, "K8": 1, "K5": 2, "K3": 2, "K2": 3, "K2 plan": 3, "K2 emit": 1,
+              "K4": 1})):
         print(f"== end to end: {tag}, {H}x{W}")
         m = StereoModel(backend="hierarchical-sgm", match=cfg, pyramid=pyr, sgm=sgm4,
                         lr_check=lr_check)
@@ -2710,8 +2757,8 @@ def main() -> int:
     hs_prod = sgm_paths["path 2, hierarchical-sgm production"][0]
     run = hs_prod.video(keyframe_interval=4)
     vres, _ = drive_checked("2 keyframes + 3 seeded frames", lambda: run(clip_l, clip_r),
-                            {"K6": 2, "K7": 6, "K8": 2, "K2": 9, "K2 emit": 5, "K4": 5,
-                             "K5": 7, "K3": 7})
+                            {"K6": 2, "K7": 6, "K8": 2, "K2": 9, "K2 plan": 9, "K2 emit": 5,
+                             "K4": 5, "K5": 7, "K3": 7})
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True,
                                                coarse_backend="sgm", sgm=sgm4)
     for t, s in enumerate(shifts):
@@ -2754,7 +2801,7 @@ def main() -> int:
         ply = os.path.join(tmp, "rig.ply")
         (lr, rr, res, z, pts, n), rig_launches = drive_checked(
             "rig path, one frame", lambda: rig_path(ply),
-            {"K11": 2, "K1": 1, "K2": 3, "K2 emit": 1, "K4": 1, "K5": 1, "K3": 1})
+            {"K11": 2, "K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 1, "K4": 1, "K5": 1, "K3": 1})
         with open(ply, "rb") as f:
             header = f.read(200).split(b"end_header")[0].decode()
     crop = (slice(100, -100), slice(250, -250))
@@ -2857,7 +2904,7 @@ def main() -> int:
 
     H2 = H - H % 64  # 1024: 1080 rows admit no mesh at levels=4 (see the docstring)
     l2, r2 = left[:H2], right[:H2]
-    refine4 = {"K2": 12, "K2 emit": 4, "K4": 4, "K5": 4, "K3": 4}
+    refine4 = {"K2": 12, "K2 plan": 12, "K2 emit": 4, "K4": 4, "K5": 4, "K3": 4}
     # the SGM coarse level is the plain-torch relay: close to the unsharded
     # path's fused SGM only (exact-cost ties may break the other way)
     for model_, coarse, want, exact in ((prod, "wta", dict(refine4, K1=4), True),
@@ -2886,7 +2933,7 @@ def main() -> int:
     cl2, cr2 = clip_l[:, :H2], clip_r[:, :H2]
     vres2, _ = drive_checked(tag, lambda: sharded.match_temporal_sharded(
         cl2, cr2, census, pyr, mesh4, keyframe_interval=4, lr_check=True),
-        {"K1": 8, "K2": 36, "K2 emit": 20, "K4": 20, "K5": 20, "K3": 20})
+        {"K1": 8, "K2": 36, "K2 plan": 36, "K2 emit": 20, "K4": 20, "K5": 20, "K3": 20})
     vwant = fused_refine.match_temporal_fused(cl2, cr2, census, pyr, 4, 32, lr_check=True)
     vplain = sharded.match_temporal_sharded(cl2, cr2, census, pyr, mesh4, keyframe_interval=4,
                                             lr_check=True, plain=True)
@@ -2902,7 +2949,7 @@ def main() -> int:
     bl2, br2 = torch.stack([left, bl]), torch.stack([right, br])
     bres, _ = drive_checked(tag, lambda: sharded.match_batch_hierarchical_sharded(
         bl2, br2, census, pyr, mesh_d, lr_check=True),
-        {"K1": 2, "K2": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2})
+        {"K1": 2, "K2": 6, "K2 plan": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2})
     bplain = sharded.match_batch_hierarchical_sharded(bl2, br2, census, pyr, mesh_d,
                                                       lr_check=True, plain=True)
     for i, (sl_, sr_) in enumerate(((left, right), (bl, br))):
@@ -3020,6 +3067,7 @@ def main() -> int:
     bounds = {
         "K1": bound(2 * 2 * hc * wc * 4 + 16 * hc * wc, hc * wc * 16 * (cost_ops(census, 2) + 2)),
         "K2": work[("make_pair", "census")],
+        "K2 plan": bound(plans[("make_pair", "census")][1], 0),
         "K2 emit": bound(8 * HW + 4 * HW + 4 * nr * nc * K, 0),
         "K3": bound(8 * HW, 38 * HW),
         "K4": bound(9 * HW, 12 * HW),

@@ -71,6 +71,7 @@
 // not fit in shared memory, run the same kernel with the box radius at run
 // time, which sums each output's costs from the images in global memory.
 
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -365,6 +366,153 @@ __global__ void refine_emit_r_kernel(const unsigned long long* __restrict__ rbuf
   dispr[o] = (float)(bases[((y / tile_rows) * nc + jc) * K + wi] + off);
 }
 
+// K2's plan — the per-tile search windows of one refine level.
+//
+// Replaces no Pallas kernel: it stands for the XLA glue of
+// stepth_tpu/match/pallas_refine.py, `tile_windows_from_prior`, which the
+// plain torch version (`fused_refine.tile_windows_from_prior`) launches as
+// ~360 small ops a level. Same output contract, bases i32[nr, nc, K] and
+// nw i32[nr, nc], for a prior f32[hp, wp] already padded to whole
+// (tile_rows x 128) tiles and its tile means f32[nr, nc] (torch's own
+// reduction, which the plain version takes too: a mean summed in another
+// order could differ in the last bit and flip round(mean) at a half).
+//
+// One block a tile, one thread an 8x8 subtile ((tile_rows / 8) x 16 of
+// them; a thread takes every blockDim-th subtile where there are more than
+// 1024). A thread sums its subtile in the plain version's order (dy outer,
+// dx inner, from 0.0f, no contraction), then scales by 1/64. The tile's
+// min and max, and each greedy window's lowest uncovered subtile and the
+// highest one within 2R of it, are block reductions: min and max are exact
+// in any order. Everything after them is the plain version's f32 rule on
+// values every thread holds, so all threads compute the same c. A tile whose
+// prior fits one window stops after the first reduction; the cover stops
+// once nothing is left uncovered (every later window repeats the 1e30
+// sentinel's c, which the block writes without reducing again).
+//
+// What bounds it on an H100: bytes, one read of the padded prior (8.4 MB
+// at 1088 x 1920, ~2.5 us at 3.35 TB/s); the greedy cover adds two barriers
+// a window on the tiles that need more than one, and these chains, not the
+// bytes, set its time (timed on an H100: 6-14 us at 1088 x 1920, K = 16,
+// where the plain version takes milliseconds of host time). One block a tile
+// because the cover of a tile is a chain of dependent reductions over its
+// subtiles alone: nothing is shared between tiles, and a tile's subtiles
+// fit one block.
+constexpr int kPlanThreads = 1024;  // most threads a plan block takes
+constexpr int kPlanOwn = 32;        // most subtiles a thread owns (a bit each)
+
+struct PlanArgs {
+  const float* prior;  // [hp, wp], hp = nr * tile_rows, wp = nc * 128
+  const float* mean;   // [nr, nc]
+  int* bases;          // [nr, nc, K]
+  int* nw;             // [nr, nc]
+  int wp, nc, tile_rows, K, max_base, R, single;
+};
+
+// The block's min of `lo` and max of `hi`, read by every thread. `buf`
+// holds 64 floats (the warps' `lo`, then their `hi`); the caller alternates
+// two such buffers between consecutive calls, so one barrier a call
+// suffices. Threads past the block's subtiles pass +inf and -inf, which
+// change neither.
+__device__ __forceinline__ void block_minmax(float& lo, float& hi, float* buf) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    buf[warp] = lo;
+    buf[32 + warp] = hi;
+  }
+  __syncthreads();
+  lo = buf[0];
+  hi = buf[32];
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) {
+    lo = fminf(lo, buf[i]);
+    hi = fmaxf(hi, buf[32 + i]);
+  }
+}
+
+__global__ void __launch_bounds__(kPlanThreads) refine_plan_kernel(PlanArgs a) {
+  __shared__ float red[2][64];
+  extern __shared__ float subs[];  // the tile's subtile means
+  const int jc = blockIdx.x, i = blockIdx.y, tile = i * a.nc + jc;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float fmax_base = (float)a.max_base;
+  const float bm = fminf(fmaxf(rintf(a.mean[tile]), 0.f), fmax_base);
+  const int b_mean = (int)bm;
+  int* bases = a.bases + (size_t)tile * a.K;
+  if (a.single) {  // K = 2, nw = 1: both slots the tile mean's base
+    if (tid < a.K) bases[tid] = b_mean;
+    if (tid == 0) a.nw[tile] = 1;
+    return;
+  }
+
+  // the subtile means; row-major (sr, sc) order within the tile
+  const int nsub = a.tile_rows / 8 * (TW / 8);
+  float lo = INFINITY, hi = -INFINITY;
+  for (int s = tid; s < nsub; s += nt) {
+    const float* p = a.prior + (size_t)(i * a.tile_rows + s / (TW / 8) * 8) * a.wp +
+                     jc * TW + s % (TW / 8) * 8;
+    float acc = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 8; ++dy) {
+      // two float4: the wrapper checks that the prior is 16-byte aligned,
+      // and wp and the subtile's first column are multiples of 8
+      const float4* row = reinterpret_cast<const float4*>(p + (size_t)dy * a.wp);
+      const float4 q0 = __ldg(row), q1 = __ldg(row + 1);
+      const float v[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+      for (int dx = 0; dx < 8; ++dx) acc = __fadd_rn(acc, v[dx]);
+    }
+    const float m = __fmul_rn(acc, 1.0f / 64.0f);
+    subs[s] = m;
+    lo = fminf(lo, m);
+    hi = fmaxf(hi, m);
+  }
+  block_minmax(lo, hi, red[0]);
+  const float blo = fminf(fminf(fmaxf(floorf(lo), 0.f), fmax_base), bm);
+  const float bhi = fmaxf(fminf(fmaxf(ceilf(hi), 0.f), fmax_base), bm);
+  const float fr = (float)a.R;
+  if (bm - blo <= fr && bhi - bm <= fr) {  // the tile fits one window
+    for (int k = tid; k < a.K; k += nt) bases[k] = b_mean;
+    if (tid == 0) a.nw[tile] = 1;
+    return;
+  }
+
+  // the greedy cover: bit j of `uncov` is subtile tid + j * nt
+  uint32_t uncov = 0;
+  for (int s = tid, j = 0; s < nsub; s += nt, ++j) uncov |= 1u << j;
+  const float reach = (float)(2 * a.R);
+  int nw = 0, k = 0, c = 0;
+  for (; k < a.K; ++k) {
+    float v = INFINITY, vhi = -INFINITY;
+    for (int s = tid, j = 0; s < nsub; s += nt, ++j) {
+      v = fminf(v, (uncov >> j & 1u) ? subs[s] : kBig);
+    }
+    float unused = -INFINITY;
+    block_minmax(v, unused, red[(2 * k + 1) & 1]);
+    const float lim = __fadd_rn(v, reach);
+    for (int s = tid, j = 0; s < nsub; s += nt, ++j) {
+      const float m = subs[s];
+      vhi = fmaxf(vhi, (uncov >> j & 1u) && m <= lim ? m : -kBig);
+    }
+    float none = INFINITY;
+    block_minmax(none, vhi, red[(2 * k + 2) & 1]);
+    vhi = fmaxf(vhi, v);
+    c = (int)fminf(fmaxf(rintf(__fmul_rn(__fadd_rn(v, vhi), 0.5f)), 0.f), fmax_base);
+    if (tid == 0) bases[k] = c;
+    if (!(v < kBig)) break;  // nothing uncovered: every later window is this one
+    ++nw;
+    const float top = __fadd_rn((float)c, fr);
+    for (int s = tid, j = 0; s < nsub; s += nt, ++j) {
+      if (!(subs[s] > top)) uncov &= ~(1u << j);
+    }
+  }
+  for (int kk = k + 1 + tid; kk < a.K; kk += nt) bases[kk] = c;
+  if (tid == 0) a.nw[tile] = nw < 1 ? 1 : nw;
+}
+
 
 // shared memory of a block: the sums, and the tiles unless RB < 0
 template <bool LR>
@@ -425,4 +573,22 @@ extern "C" int stepth_refine_emit_r(const unsigned long long* rbuf,
   const dim3 grid((w + 31) / 32, (h + 7) / 8);
   STEPTH_LAUNCH(refine_emit_r_kernel, grid, block, 0, stream, rbuf, bases, dispr,
                 h, w, nc, K, tile_rows, R);
+}
+
+// The plan of a padded prior f32[hp, wp] (hp % tile_rows == 0, wp % 128 ==
+// 0) from its tile means f32[nr, nc]: bases i32[nr, nc, K], nw i32[nr, nc].
+// `single` (the capped window count is 1): K = 2, both slots round(mean).
+extern "C" int stepth_refine_plan(const float* prior, const float* mean, int* bases, int* nw,
+                                  int hp, int wp, int tile_rows, int K, int max_base, int R,
+                                  int single, void* stream) {
+  const int nsub = tile_rows / 8 * (TW / 8);
+  if (hp < 1 || wp < TW || wp % TW || tile_rows < 8 || tile_rows % 8 || hp % tile_rows ||
+      K < 1 || R < 0 || nsub > kPlanThreads * kPlanOwn ||
+      reinterpret_cast<uintptr_t>(prior) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const PlanArgs a{prior, mean, bases, nw, wp, wp / TW, tile_rows, K, max_base, R, single};
+  const dim3 grid(wp / TW, hp / tile_rows);
+  const int threads = min((nsub + 31) / 32 * 32, kPlanThreads);
+  STEPTH_LAUNCH(refine_plan_kernel, grid, threads, (size_t)nsub * sizeof(float), stream, a);
 }

@@ -5,8 +5,10 @@ the coarse-to-fine pipeline and its temporally seeded video loop (twin of
 A refine level searches ``base ± R`` around the upsampled coarser disparity,
 where ``base`` is fixed per (tile_rows × 128-column) tile: the plan
 (:func:`tile_windows_from_prior`) gives each tile up to ``max_windows`` bases
-and the number ``nw`` to run. The plan is part of the output contract and is
-built here in torch, on the input's device, as the reference builds it.
+and the number ``nw`` to run. The plan is part of the output contract:
+:func:`plan_level` builds it with K2_PLAN for CUDA tensors and with the plain
+torch version for CPU tensors; the plain pipeline (:data:`PLAIN`) plans with
+:func:`plan_level_plain`, plain torch on any device.
 
 :func:`refine_level` plans a level and hands the plan to
 :func:`refine_planned`, which launches K2 for CUDA tensors and runs
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
@@ -52,10 +55,31 @@ K2_EMIT = kernels.Kernel(
     source="stepth_tpu_torch/csrc/fused_refine.cu",
     replaces="stepth_tpu/match/pallas_refine.py:63",
 )
+K2_PLAN = kernels.Kernel(
+    "K2 refine plan",
+    "stepth_refine_plan",
+    [kernels.PTR] * 4 + [kernels.INT] * 7,
+    source="stepth_tpu_torch/csrc/fused_refine.cu",
+    replaces="none (the XLA glue of stepth_tpu/match/pallas_refine.py:377)",
+)
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _tile_mean(prior: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """The (tile_rows × 128) tile means f32[nr, nc] of a padded prior: one
+    torch reduction, which the kernel path and the plain path both take, so
+    ``round(mean)`` is the same at a mean within an ulp of a half."""
+    hp, wp = prior.shape
+    return prior.reshape(hp // tile_rows, tile_rows, wp // _TW, _TW).mean(dim=(1, 3))
+
+
+def _window_cap(max_base: int, radius: int, max_windows: int) -> int:
+    """``max_windows`` capped at ``ceil((max_base + 1) / (2·radius + 1))``,
+    the most windows a greedy cover of ``[0, max_base]`` can use."""
+    return min(max_windows, -(-(max_base + 1) // (2 * radius + 1)))
 
 
 def tile_windows_from_prior(
@@ -72,9 +96,8 @@ def tile_windows_from_prior(
     ``nw = 1``."""
     hp, wp = prior.shape
     nr, nc = hp // tile_rows, wp // _TW
-    mean = prior.reshape(nr, tile_rows, nc, _TW).mean(dim=(1, 3))
-    b_mean = torch.round(mean).clamp(0, max_base).to(torch.int32)
-    max_windows = min(max_windows, -(-(max_base + 1) // (2 * radius + 1)))
+    b_mean = torch.round(_tile_mean(prior, tile_rows)).clamp(0, max_base).to(torch.int32)
+    max_windows = _window_cap(max_base, radius, max_windows)
     if max_windows <= 1:
         bases = b_mean[..., None].expand(nr, nc, 2).contiguous()
         return bases, torch.ones_like(b_mean)
@@ -111,21 +134,62 @@ def tile_windows_from_prior(
     return bases, nw
 
 
+def tile_windows_fused(
+    prior: torch.Tensor, tile_rows: int, max_base: int, radius: int, max_windows: int
+):
+    """:func:`tile_windows_from_prior` on a padded CUDA prior: the torch tile
+    mean, then K2_PLAN, one block a tile. Same arguments and outputs."""
+    kernels.check_cuda_tensor("plan prior", prior, torch.float32, 2)
+    hp, wp = prior.shape
+    if tile_rows < 8 or tile_rows % 8 or hp % tile_rows or wp % _TW:
+        raise ValueError(f"plan: prior {hp}x{wp} is not whole ({tile_rows}x{_TW}) tiles")
+    if prior.data_ptr() % 16:  # K2_PLAN reads each subtile row as two float4
+        raise ValueError("plan: the prior is not 16-byte aligned")
+    nr, nc = hp // tile_rows, wp // _TW
+    mean = _tile_mean(prior, tile_rows)
+    K = _window_cap(max_base, radius, max_windows)
+    single = K <= 1
+    K = 2 if single else K
+    bases = torch.empty((nr, nc, K), dtype=torch.int32, device=prior.device)
+    nw = torch.empty((nr, nc), dtype=torch.int32, device=prior.device)
+    K2_PLAN.launch(prior.device, prior.data_ptr(), mean.data_ptr(), bases.data_ptr(),
+                   nw.data_ptr(), hp, wp, tile_rows, K, max_base, radius, int(single))
+    return bases, nw
+
+
+def pad_prior(prior: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """The prior edge-padded to whole (tile_rows × 128) tiles: one copy."""
+    h, w = prior.shape
+    return F.pad(prior[None], (0, -w % _TW, 0, -h % tile_rows), mode="replicate")[0]
+
+
+def _plan(tile_windows, prior, tile_rows, max_base, radius, max_windows):
+    tile_rows = _round_up(tile_rows, 8)
+    bases, nw = tile_windows(pad_prior(prior, tile_rows), tile_rows, max_base, radius,
+                             max_windows)
+    return bases, nw, tile_rows
+
+
 @tracing.annotate("stepth/plan")
 def plan_level(
     prior: torch.Tensor, tile_rows: int, max_base: int, radius: int, max_windows: int
 ):
     """The plan one refine level runs: ``tile_rows`` rounded up to a multiple
     of 8, the prior edge-padded to whole (tile_rows × 128) tiles, then
-    :func:`tile_windows_from_prior`. Returns ``(bases, nw, tile_rows)``."""
-    tile_rows = _round_up(tile_rows, 8)
-    h, w = prior.shape
-    rows = torch.arange(_round_up(h, tile_rows), device=prior.device).clamp(max=h - 1)
-    cols = torch.arange(_round_up(w, _TW), device=prior.device).clamp(max=w - 1)
-    bases, nw = tile_windows_from_prior(
-        prior[rows][:, cols], tile_rows, max_base, radius, max_windows
-    )
-    return bases, nw, tile_rows
+    :func:`tile_windows_fused` (K2_PLAN) on CUDA tensors or
+    :func:`tile_windows_from_prior` on CPU tensors. Returns ``(bases, nw,
+    tile_rows)``."""
+    plan = tile_windows_from_prior if prior.device.type == "cpu" else tile_windows_fused
+    return _plan(plan, prior, tile_rows, max_base, radius, max_windows)
+
+
+@tracing.annotate("stepth/plan")
+def plan_level_plain(
+    prior: torch.Tensor, tile_rows: int, max_base: int, radius: int, max_windows: int
+):
+    """:func:`plan_level`'s plain version, on any device: the same pad, then
+    :func:`tile_windows_from_prior`."""
+    return _plan(tile_windows_from_prior, prior, tile_rows, max_base, radius, max_windows)
 
 
 def _region_margin(cfg: MatchConfig, radius: int) -> int:
@@ -332,11 +396,11 @@ def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
 
 
 @tracing.annotate("stepth/refine")
-def _refine_level(planned_fn, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
-                  g_row0, g_h, lr, max_windows):
+def _refine_level(plan_fn, planned_fn, left_g, right_g, prior, cfg, radius, max_base,
+                  tile_rows, g_row0, g_h, lr, max_windows):
     if prior.shape != left_g.shape:
         raise ValueError(f"prior {tuple(prior.shape)} != image {tuple(left_g.shape)}")
-    bases, nw, tile_rows = plan_level(prior, tile_rows, max_base, radius, max_windows)
+    bases, nw, tile_rows = plan_fn(prior, tile_rows, max_base, radius, max_windows)
     return planned_fn(left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h, lr)
 
 
@@ -357,8 +421,8 @@ def refine_level(
     version on CPU tensors (:func:`refine_planned`). Same arguments and
     outputs as the reference's ``refine_level`` without ``interpret``:
     f32[H, W], or ``(disp, disp_r)`` with ``lr``."""
-    return _refine_level(refine_planned, left_g, right_g, prior, cfg, radius, max_base,
-                         tile_rows, g_row0, g_h, lr, max_windows)
+    return _refine_level(plan_level, refine_planned, left_g, right_g, prior, cfg, radius,
+                         max_base, tile_rows, g_row0, g_h, lr, max_windows)
 
 
 def refine_level_plain(
@@ -374,9 +438,10 @@ def refine_level_plain(
     lr: bool = False,
     max_windows: int = 4,
 ):
-    """K2's plain version of :func:`refine_level`, on any device."""
-    return _refine_level(refine_planned_plain, left_g, right_g, prior, cfg, radius,
-                         max_base, tile_rows, g_row0, g_h, lr, max_windows)
+    """The plain version of :func:`refine_level`, on any device: the plain
+    plan (:func:`plan_level_plain`), then K2's plain version."""
+    return _refine_level(plan_level_plain, refine_planned_plain, left_g, right_g, prior, cfg,
+                         radius, max_base, tile_rows, g_row0, g_h, lr, max_windows)
 
 
 class _Path(NamedTuple):
@@ -495,8 +560,9 @@ def match_hierarchical_plain(
     device=None,
     sgm: Optional[SGMConfig] = None,
 ) -> dense.MatchResult:
-    """The same pipeline through the kernels' plain versions, on any device:
-    the reference the kernel path is held to on the card."""
+    """The same pipeline through the kernels' plain versions, the plan's
+    included (:func:`plan_level_plain`), on any device: the reference the
+    kernel path is held to on the card."""
     return _match_hierarchical(PLAIN, left, right, cfg, pyr, tile_rows, lr_check,
                                coarse_backend, device, sgm)
 

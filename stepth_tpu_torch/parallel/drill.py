@@ -93,10 +93,10 @@ from stepth_tpu_torch.utils import checkpoint
 MATCH_MODES = ("match", "sgm", "sgm-pallas", "hierarchical", "ba")
 MODES = MATCH_MODES + ("resumable", "failure", "hung")
 
-KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 emit": fused_refine.K2_EMIT,
-           "K3": fused_post.K3, "K4": fused_post.K4, "K5": fused_post.K5, "K6": fused_sgm.K6,
-           "K7": fused_sgm.K7, "K8": fused_sgm.K8, "K9": fused_sgm.K9, "K10": fused_sgm.K10,
-           "K11": fused_remap.K11}
+KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
+           "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3, "K4": fused_post.K4,
+           "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8,
+           "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
 
 # the BA problems: cameras, points, seed, pixel noise, LM and CG iterations,
 # a checkpoint every ``every`` (resumable) and the cost the solve must reach

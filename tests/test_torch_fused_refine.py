@@ -18,6 +18,7 @@ from stepth_tpu_torch.match import fused_refine, pyramid
 from stepth_tpu_torch.utils import scenes
 
 from tests.test_match_dense import make_pair
+from tests.test_torch_refine_plan import plan_prior
 from tests.torch_port import assert_close, cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
 SHIFT = 6
@@ -64,6 +65,24 @@ def test_plan_equals_reference_on_ramps_and_offsets(rng):
     _plans_equal(ramp, 32, 64, 2, 16)
     _plans_equal(np.full((32, 256), 12.5, np.float32), 32, 64, 2, 16)
     _plans_equal(np.full((32, 256), 13.5, np.float32), 32, 64, 2, 16)
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+@pytest.mark.parametrize("kind", ["halves", "groups"])
+def test_plan_equals_reference_on_ties(kind, radius):
+    """Integer priors: tile means exactly on a half (round-half-even of the
+    mean), and covers whose window midpoints fall on halves and that end
+    before K windows (every later slot the 1e30 sentinel's base)."""
+    early = 0
+    for tile_rows, max_base in ((16, 64), (24, 32), (32, 128)):
+        prior = plan_prior(kind, 2 * tile_rows, 384, max_base).numpy()
+        nw = _plans_equal(prior, tile_rows, max_base, radius, 16)
+        K = min(16, -(-(max_base + 1) // (2 * radius + 1)))
+        early += int(((nw > 1) & (nw < K)).sum())
+        if kind == "halves":
+            means = prior.reshape(2, tile_rows, 3, 128).mean(axis=(1, 3))
+            assert (means % 1 == 0.5).all()
+    assert early > 0 if kind == "groups" else early == 0
 
 
 @pytest.mark.parametrize("max_base, radius", [(16, 2), (64, 2), (32, 4), (128, 2)])

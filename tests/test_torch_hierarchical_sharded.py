@@ -41,15 +41,18 @@ def _pair(h=128, w=256, shift=6):
 
 def _with_plans(monkeypatch, fn):
     """``fn()`` and the refine plans ``(bases, nw, tile_rows)`` it made, in
-    order."""
-    plans, plan_level = [], fused_refine.plan_level
+    order, by the kernels' path or the plain one."""
+    plans = []
 
-    def record(*args):
-        plans.append(plan_level(*args))
-        return plans[-1]
+    def recorder(plan):
+        def record(*args):
+            plans.append(plan(*args))
+            return plans[-1]
+        return record
 
     with monkeypatch.context() as m:
-        m.setattr(fused_refine, "plan_level", record)
+        for name in ("plan_level", "plan_level_plain"):
+            m.setattr(fused_refine, name, recorder(getattr(fused_refine, name)))
         return fn(), plans
 
 
