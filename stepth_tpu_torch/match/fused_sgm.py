@@ -31,9 +31,12 @@ with 4 or 8 directions and ``D ≤ 128``, K7 for every direction but the last
 and K8 for ↑y (then K4 with LR); otherwise K7 for every direction and K9.
 In f32 both give the same bits; with bf16 they differ where the reference's
 do (the unfused path rounds the last sum to bf16 before the WTA). Then K5
-and K3. The reference's ``step_block``/``lane_tile`` and ``tile_rows`` only
-retile its TPU grid and cannot change an output: they are accepted and
-ignored here.
+and K3. Each frame adds one to the counter ``sgm.wta_fused`` or
+``sgm.wta_stored`` by the path it took; under a profiler the volume, each
+scan (a diagonal one also inside ``stepth/sgm/diagonal``), the fused last
+scan and K9 with its K4 open ``stepth/sgm/`` spans. The reference's
+``step_block``/``lane_tile`` and ``tile_rows`` only retile its TPU grid and
+cannot change an output: they are accepted and ignored here.
 
 Every wrapper runs the plain version for CPU tensors and launches its
 kernel (or raises) for CUDA tensors. The plain versions share their
@@ -47,6 +50,7 @@ same order as well.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -395,15 +399,18 @@ def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
         vol = path.volume(lg, rg, cfg, dtype)
     p1, p2 = sgm_mod.penalties(cfg, sgm)
     fused_wta = sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D
+    tracing.count("sgm.wta_fused" if fused_wta else "sgm.wta_stored")
     acc = None
     for axis, reverse, shift in dirs[:-1] if fused_wta else dirs:
-        with tracing.span("stepth/sgm/scan"):
+        with tracing.span("stepth/sgm/scan"), (tracing.span("stepth/sgm/diagonal") if shift
+                                               else contextlib.nullcontext()):
             acc = path.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     if fused_wta:
         with tracing.span("stepth/sgm/scan_wta"):
             disp, disp_r, cbest, uok = path.scan_wta(vol, acc, p1, p2, cfg)
     else:  # K9, and K4's LR check inside its wrapper
-        disp, _, cbest, uok = path.wta(acc, cfg)
+        with tracing.span("stepth/sgm/wta"):
+            disp, _, cbest, uok = path.wta(acc, cfg)
     with tracing.span("stepth/post"):
         valid = uok > 0.5
         if fused_wta and cfg.lr_threshold is not None:

@@ -12,7 +12,8 @@ clock. (Threads the profiler did not start from record nothing, so a span
 on a worker thread is never seen.) The program's spans are named
 ``stepth/...`` and sit on its served path: ``stepth/call`` around a model
 call, then ``coarse``, ``census``, ``plan``, ``refine``, ``post``,
-``sgm/volume``, ``sgm/scan``, ``sgm/scan_wta`` and ``loader/take``.
+``sgm/volume``, ``sgm/scan`` (``sgm/diagonal`` inside it on a diagonal
+scan), ``sgm/scan_wta``, ``sgm/wta`` and ``loader/take``.
 """
 
 from __future__ import annotations

@@ -102,9 +102,9 @@ def _sgm(directions):
               "stepth/refine": 4, "stepth/post": 2}),
     (_sgm(4), {"stepth/call": 1, "stepth/sgm/volume": 1, "stepth/sgm/scan": 3,
                "stepth/sgm/scan_wta": 1, "stepth/post": 1}),
-    # two directions: every direction scanned, then K9's WTA (in no span)
+    # two directions: every direction scanned, then K9's WTA with its K4
     (_sgm(2), {"stepth/call": 1, "stepth/sgm/volume": 1, "stepth/sgm/scan": 2,
-               "stepth/post": 1}),
+               "stepth/sgm/wta": 1, "stepth/post": 1}),
 ], ids=["call", "plain", "video", "sgm4", "sgm2"])
 def test_served_calls_open_each_span(fn, want):
     assert _spans(fn) == want
