@@ -13,8 +13,10 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    a. SAD: K1 at the 135×240 coarse level with D=16, K2 at the three refine
       levels (priors from the plain pipeline), each level's plan (K2 plan)
       against the plain plan of the same padded prior, K3 at 1080×1920;
-   b. census (window 7, two planes): K1 at the coarse level, K2 at the
-      three levels, level 0 with the right view (``lr=True``, both
+   b. census (window 7, two planes): the census kernel at the four
+      levels (one launch a pair, bit-equal to the plain census; its ms,
+      device ms, plain ms and byte bound), K1 at the coarse level, K2 at
+      the three levels, level 0 with the right view (``lr=True``, both
       outputs), the right-view emit on a synthetic buffer;
    c. K1 with SAD, D=128 and its LR check (K4) at 1080×1920 (``flagship``);
    d. K4 and K5 at 1080×1920 on the production maps and on a random map;
@@ -959,7 +961,8 @@ def reference_flows(dev, card, drive, prod, prod_launches, sad_model, pair):
         n = len(FLOW_SHIFTS)
         want_launches = {k: 0 for k in launches}
         want_launches.update({"K1": 3, "K2": 3 * 3 + n - 3, "K2 plan": 3 * 3 + n - 3,
-                              "K2 emit": n, "K3": n, "K4": n, "K5": n})
+                              "census": 3 * 4 + n - 3, "K2 emit": n, "K3": n, "K4": n,
+                              "K5": n})
         print(f"  launches for {n} frames: {launches}")
         if rc != 0 or launches != want_launches:
             raise AssertionError(f"cli video: rc {rc}, launches {launches} != {want_launches}")
@@ -1440,6 +1443,9 @@ def mapping_flows(dev, card, drive, err):
         if launches["K2 plan"] != launches["K2"]:
             raise AssertionError(f"mapping clip: K2 plan launched {launches['K2 plan']} times, "
                                  f"K2 {launches['K2']}")
+        if launches["census"] != launches["K1"] + launches["K2"]:  # one a K1 or K2 call
+            raise AssertionError(f"mapping clip: the census launched {launches['census']} "
+                                 f"times, K1 and K2 {launches['K1']} + {launches['K2']}")
         print("  launches on the clip: " + ", ".join(f"{k} {v}" for k, v in launches.items()
                                                      if v))
         s = out["stages"].summary()
@@ -1565,7 +1571,7 @@ def mapping_flows(dev, card, drive, err):
     t_tv = time.perf_counter() - t0
     print("  launches: " + ", ".join(f"{k} {v}" for k, v in tv_launches.items() if v)
           + f"; {t_tv * 1e3:.4f} ms end to end (first call of the flow), card: {card}")
-    for k, n in (("K11", 2), ("K1", 1), ("K2", 2), ("K2 plan", 2), ("K3", 1)):
+    for k, n in (("K11", 2), ("K1", 1), ("K2", 2), ("K2 plan", 2), ("census", 0), ("K3", 1)):
         if tv_launches[k] != n:
             raise AssertionError(f"two-view: {k} launched {tv_launches[k]} times, not {n}")
     # K11 and the matcher's kernels at the flow's shapes, against their plain
@@ -1634,7 +1640,8 @@ DRILL_DIE_AT = 5  # 8d: rank 1 exits after the first checkpointed segment
 # launches per frame and rank: 8a production on 2 of 4 shards, 8b sgm-pallas
 # 4 directions on 2 of 4 shards (K10: ↓y and ↑y on each)
 DRILL_LAUNCHES = {
-    "hierarchical": {"K1": 2, "K2": 6, "K2 plan": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2},
+    "hierarchical": {"K1": 2, "K2": 6, "K2 plan": 6, "census": 8, "K2 emit": 2, "K4": 2, "K5": 2,
+                     "K3": 2},
     "sgm-pallas": {"K6": 2, "K7": 4, "K10": 4, "K9": 2, "K4": 2, "K5": 2, "K3": 2},
 }
 
@@ -1737,8 +1744,10 @@ def multiprocess_drills(card):
                 for k, v in got.items():
                     launches[r][k] = launches[r].get(k, 0) + v
                 checked = nums[r][mode]["paired"]
-                # the plan runs inside the refine stage, which K2's calls count
-                if any(checked.get("K2" if k == "K2 plan" else k, [0])[0] < v
+                # the plan runs inside the refine stage, which K2's calls
+                # count, and the census inside the K1 and K2 stages
+                stages = {"K2 plan": ("K2",), "census": ("K1", "K2")}
+                if any(sum(checked.get(st, [0])[0] for st in stages.get(k, (k,))) < v
                        for k, v in DRILL_LAUNCHES[mode].items()):
                     raise AssertionError(f"drill {mode}: rank {r} checked {checked}")
             tag = "8a" if mode == "hierarchical" else "8b"
@@ -1948,9 +1957,10 @@ def main() -> int:
     oracle_run = start_oracle_depth()
 
     KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
-               "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3, "K4": fused_post.K4,
-               "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8,
-               "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
+               "census": dense.CENSUS, "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3,
+               "K4": fused_post.K4, "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7,
+               "K8": fused_sgm.K8, "K9": fused_sgm.K9, "K10": fused_sgm.K10,
+               "K11": fused_remap.K11}
     NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}  # off the WTA paths
     errs = {n: 0.0 for n in KERNELS}
     times = {}
@@ -1997,11 +2007,35 @@ def main() -> int:
         k1 = (cuda_ms(lambda: fused_dense.raw_match(lefts[-1], rights[-1], c_cfg, 16)),
               cuda_ms(lambda: fused_dense.raw_match_plain(lefts[-1], rights[-1], c_cfg, 16)))
         planes_of = None
-        if cfg.cost == "census":  # the planes both wrappers compute in torch
-            ms = [cuda_ms(lambda: dense.census_pair(lg, rg, cfg.census_window))
-                  for lg, rg in zip(lefts, rights)]
-            print(f"  {scene} census planes of a pair, levels 0-{len(ms) - 1}: "
-                  + ", ".join(f"{m:.4f}" for m in ms) + " ms")
+        if cfg.cost == "census":
+            # the census kernel, one launch a pair, against its plain version
+            # at each level: bit-equal; ms a call, device ms a launch, plain
+            # ms, and its bound (gray read, P planes written, both views)
+            rows = []
+            for lvl, (lg, rg) in enumerate(zip(lefts, rights)):
+                kplanes = dense.census_pair(lg, rg, cfg.census_window)
+                pplanes = dense.census_pair_plain(lg, rg, cfg.census_window)
+                if not all(torch.equal(g, w_) for g, w_ in zip(kplanes, pplanes)):
+                    raise AssertionError(f"{scene} census level {lvl}: not bit-equal")
+                err("census", 0.0)
+                hl, wl = lg.shape
+                out = torch.empty((2, *kplanes[0].shape), dtype=torch.int32, device=dev)
+                radius = cfg.census_window // 2
+                rows.append((
+                    tuple(lg.shape),
+                    cuda_ms(lambda: dense.census_pair(lg, rg, cfg.census_window)),
+                    device_ms(lambda: dense.CENSUS.launch(
+                        dev, lg.data_ptr(), rg.data_ptr(), out.data_ptr(), hl, wl, radius)),
+                    cuda_ms(lambda: dense.census_pair_plain(lg, rg, cfg.census_window)),
+                    bound(2 * (4 + 4 * dense.census_plane_count(cfg.census_window)) * hl * wl,
+                          0)))
+            census_rows[scene] = rows
+            print(f"  {scene} census kernel (window {cfg.census_window}), bit-equal to the "
+                  f"plain census at levels 0-{len(rows) - 1}; a pair: ms, device ms, plain ms, "
+                  f"bound ms (bytes), share of the device time:")
+            for shape, ms, dms, pms, (bms, _) in rows:
+                print(f"    {shape[0]}x{shape[1]}: {ms:.4f}, {dms:.4f}, {pms:.4f}, {bms:.4f}, "
+                      f"{bms / dms:.1%}")
             # the kernels alone: K1 and K2 launched on planes computed once
             planes_of = [dense.census_pair(lg, rg, cfg.census_window)
                          for lg, rg in zip(lefts, rights)]
@@ -2128,6 +2162,7 @@ def main() -> int:
     work = {}  # (scene, cost) -> K2's bound over three levels
     kernel_only = {}  # (scene, cost, kernel) -> device ms of K1 or K2 on precomputed planes
     plans = {}  # (scene, cost) -> K2_PLAN's device ms, bytes, plan_level ms, plain ms (3 levels)
+    census_rows = {}  # scene -> per level: shape, ms, device ms, plain ms, bound of the census
     device = {}  # kernel -> device ms per launch at the shape its "ms" was timed at
     prod_maps = {}
     for scene, (left, right) in pairs.items():
@@ -2149,6 +2184,8 @@ def main() -> int:
         if scene == "make_pair":
             times["K1 sad, 135x240 D=16"], times["K2 sad, 3 levels"] = k1, k2
             times["K1"], times["K2"] = k1_c, k2_c
+            c0 = census_rows[scene][0]  # the census at 1080x1920
+            times["census"], device["census"] = (c0[1], c0[3]), c0[2]
             p = plans[(scene, "census")]
             device["K2 plan"], times["K2 plan"] = p[0], (p[2], p[3])
             times["K3"] = (cuda_ms(lambda: fused_post.median3_fused(disp)),
@@ -2606,8 +2643,8 @@ def main() -> int:
     bl, br = (torch.as_tensor(a, device=dev) for a in pairs["box"])
     res, launches = drive(lambda: model(left, right))
     print(f"  launches per frame: {launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 0, "K3": 1, "K4": 0, "K5": 0,
-                     **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "census": 0, "K2 emit": 0, "K3": 1,
+                     "K4": 0, "K5": 0, **NOT_WTA}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches} != {want_launches}")
 
@@ -2651,8 +2688,8 @@ def main() -> int:
         l, r, census, pyr, lr_check=True))
     res, prod_launches = drive(lambda: prod(left, right))
     print(f"  launches per frame: {prod_launches}")
-    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1,
-                     **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 3, "K2 plan": 3, "census": 4, "K2 emit": 1, "K3": 1,
+                     "K4": 1, "K5": 1, **NOT_WTA}
     if prod_launches != want_launches:
         raise AssertionError(f"launch counts {prod_launches} != {want_launches}")
     check_median("production", res.disparity)
@@ -2667,8 +2704,8 @@ def main() -> int:
     flag = flagship()
     res, flag_launches = drive(lambda: flag(left, right))
     print(f"  launches per frame: {flag_launches}")
-    want_launches = {"K1": 1, "K2": 0, "K2 plan": 0, "K2 emit": 0, "K3": 1, "K4": 1, "K5": 1,
-                     **NOT_WTA}
+    want_launches = {"K1": 1, "K2": 0, "K2 plan": 0, "census": 0, "K2 emit": 0, "K3": 1,
+                     "K4": 1, "K5": 1, **NOT_WTA}
     if flag_launches != want_launches:
         raise AssertionError(f"launch counts {flag_launches} != {want_launches}")
     check_median("flagship", res.disparity)
@@ -2685,8 +2722,8 @@ def main() -> int:
     run = prod.video(keyframe_interval=4)
     vres, video_launches = drive(lambda: run(clip_l, clip_r))
     print(f"  launches for 2 keyframes + 3 seeded frames: {video_launches}")
-    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 plan": 2 * 3 + 3, "K2 emit": 5, "K3": 5,
-                     "K4": 5, "K5": 5, **NOT_WTA}
+    want_launches = {"K1": 2, "K2": 2 * 3 + 3, "K2 plan": 2 * 3 + 3, "census": 2 * 4 + 3,
+                     "K2 emit": 5, "K3": 5, "K4": 5, "K5": 5, **NOT_WTA}
     if video_launches != want_launches:
         raise AssertionError(f"launch counts {video_launches} != {want_launches}")
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True)
@@ -2700,8 +2737,8 @@ def main() -> int:
         fused_refine.FUSED, clip_l[1], clip_r[1], vres.disparity[0], census, pyr,
         lr_check=True))
     print(f"  launches per seeded frame: {seeded_launches}")
-    want_launches = {"K1": 0, "K2": 1, "K2 plan": 1, "K2 emit": 1, "K3": 1, "K4": 1, "K5": 1,
-                     **NOT_WTA}
+    want_launches = {"K1": 0, "K2": 1, "K2 plan": 1, "census": 1, "K2 emit": 1, "K3": 1,
+                     "K4": 1, "K5": 1, **NOT_WTA}
     if seeded_launches != want_launches:
         raise AssertionError(f"launch counts {seeded_launches} != {want_launches}")
 
@@ -2721,8 +2758,8 @@ def main() -> int:
             ("path 1, hierarchical-sgm sad", sad, False,
              {"K6": 1, "K7": 3, "K8": 1, "K5": 1, "K3": 2, "K2": 3, "K2 plan": 3}),
             ("path 2, hierarchical-sgm production", census, True,
-             {"K6": 1, "K7": 3, "K8": 1, "K5": 2, "K3": 2, "K2": 3, "K2 plan": 3, "K2 emit": 1,
-              "K4": 1})):
+             {"K6": 1, "K7": 3, "K8": 1, "K5": 2, "K3": 2, "K2": 3, "K2 plan": 3, "census": 4,
+              "K2 emit": 1, "K4": 1})):
         print(f"== end to end: {tag}, {H}x{W}")
         m = StereoModel(backend="hierarchical-sgm", match=cfg, pyramid=pyr, sgm=sgm4,
                         lr_check=lr_check)
@@ -2757,8 +2794,8 @@ def main() -> int:
     hs_prod = sgm_paths["path 2, hierarchical-sgm production"][0]
     run = hs_prod.video(keyframe_interval=4)
     vres, _ = drive_checked("2 keyframes + 3 seeded frames", lambda: run(clip_l, clip_r),
-                            {"K6": 2, "K7": 6, "K8": 2, "K2": 9, "K2 plan": 9, "K2 emit": 5,
-                             "K4": 5, "K5": 7, "K3": 7})
+                            {"K6": 2, "K7": 6, "K8": 2, "K2": 9, "K2 plan": 9, "census": 11,
+                             "K2 emit": 5, "K4": 5, "K5": 7, "K3": 7})
     vplain = fused_refine.match_temporal_plain(clip_l, clip_r, census, pyr, 4, lr_check=True,
                                                coarse_backend="sgm", sgm=sgm4)
     for t, s in enumerate(shifts):
@@ -2801,7 +2838,8 @@ def main() -> int:
         ply = os.path.join(tmp, "rig.ply")
         (lr, rr, res, z, pts, n), rig_launches = drive_checked(
             "rig path, one frame", lambda: rig_path(ply),
-            {"K11": 2, "K1": 1, "K2": 3, "K2 plan": 3, "K2 emit": 1, "K4": 1, "K5": 1, "K3": 1})
+            {"K11": 2, "K1": 1, "K2": 3, "K2 plan": 3, "census": 4, "K2 emit": 1, "K4": 1,
+             "K5": 1, "K3": 1})
         with open(ply, "rb") as f:
             header = f.read(200).split(b"end_header")[0].decode()
     crop = (slice(100, -100), slice(250, -250))
@@ -2907,8 +2945,9 @@ def main() -> int:
     refine4 = {"K2": 12, "K2 plan": 12, "K2 emit": 4, "K4": 4, "K5": 4, "K3": 4}
     # the SGM coarse level is the plain-torch relay: close to the unsharded
     # path's fused SGM only (exact-cost ties may break the other way)
-    for model_, coarse, want, exact in ((prod, "wta", dict(refine4, K1=4), True),
-                                        (hs_prod, "sgm", refine4, False)):
+    # the census: one launch a shard and level that runs K1 or K2
+    for model_, coarse, want, exact in ((prod, "wta", dict(refine4, K1=4, census=16), True),
+                                        (hs_prod, "sgm", dict(refine4, census=12), False)):
         tag = f"{model_.backend} production sharded, 4 shards"
         print(f"== end to end: {tag}, {H2}x{W}, tile_rows 32")
         # sharded() drops lr_check, as the reference's does: the LR check
@@ -2933,7 +2972,8 @@ def main() -> int:
     cl2, cr2 = clip_l[:, :H2], clip_r[:, :H2]
     vres2, _ = drive_checked(tag, lambda: sharded.match_temporal_sharded(
         cl2, cr2, census, pyr, mesh4, keyframe_interval=4, lr_check=True),
-        {"K1": 8, "K2": 36, "K2 plan": 36, "K2 emit": 20, "K4": 20, "K5": 20, "K3": 20})
+        {"K1": 8, "K2": 36, "K2 plan": 36, "census": 44, "K2 emit": 20, "K4": 20, "K5": 20,
+         "K3": 20})
     vwant = fused_refine.match_temporal_fused(cl2, cr2, census, pyr, 4, 32, lr_check=True)
     vplain = sharded.match_temporal_sharded(cl2, cr2, census, pyr, mesh4, keyframe_interval=4,
                                             lr_check=True, plain=True)
@@ -2949,7 +2989,8 @@ def main() -> int:
     bl2, br2 = torch.stack([left, bl]), torch.stack([right, br])
     bres, _ = drive_checked(tag, lambda: sharded.match_batch_hierarchical_sharded(
         bl2, br2, census, pyr, mesh_d, lr_check=True),
-        {"K1": 2, "K2": 6, "K2 plan": 6, "K2 emit": 2, "K4": 2, "K5": 2, "K3": 2})
+        {"K1": 2, "K2": 6, "K2 plan": 6, "census": 8, "K2 emit": 2, "K4": 2, "K5": 2,
+         "K3": 2})
     bplain = sharded.match_batch_hierarchical_sharded(bl2, br2, census, pyr, mesh_d,
                                                       lr_check=True, plain=True)
     for i, (sl_, sr_) in enumerate(((left, right), (bl, br))):
@@ -3068,6 +3109,7 @@ def main() -> int:
         "K1": bound(2 * 2 * hc * wc * 4 + 16 * hc * wc, hc * wc * 16 * (cost_ops(census, 2) + 2)),
         "K2": work[("make_pair", "census")],
         "K2 plan": bound(plans[("make_pair", "census")][1], 0),
+        "census": census_rows["make_pair"][0][4],
         "K2 emit": bound(8 * HW + 4 * HW + 4 * nr * nc * K, 0),
         "K3": bound(8 * HW, 38 * HW),
         "K4": bound(9 * HW, 12 * HW),
@@ -3121,6 +3163,11 @@ def main() -> int:
         "K7": {"ms_by_direction": {a: t[0] for a, t in k7_dirs.items()},
                "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()}},
         "K11": {"library_device_ms": k11_device[1]},
+        "census": {"window": census.census_window, "levels": {
+            scene: [{"shape": list(shape), "ms": ms, "device_ms": dms, "plain_ms": pms,
+                     "bound_ms": bms, "bound_by": by}
+                    for shape, ms, dms, pms, (bms, by) in rows]
+            for scene, rows in census_rows.items()}},
     }
     for n, entry in zip(KERNELS, summary["kernels"]):
         entry.update(extra.get(n, {}))

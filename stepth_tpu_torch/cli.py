@@ -103,8 +103,8 @@ def _cmd_video(args) -> int:
     DIR`` profiles the stream (``utils.tracing.device_trace``: the
     program's ``stepth/`` spans beside the card's kernels and copies in
     ``DIR/trace.json``) and writes what the stream added to the counters
-    (``utils.tracing.counters()``: the loader's takes and starved takes) to
-    ``DIR/counters.json``."""
+    (``utils.tracing.counters()``: the loader's takes and starved takes,
+    the census kernel's pairs) to ``DIR/counters.json``."""
     from stepth_tpu_torch.config import MatchConfig, PyramidConfig
     from stepth_tpu_torch.core import io
     from stepth_tpu_torch.core.loader import PrefetchLoader
@@ -241,7 +241,8 @@ def main(argv=None) -> int:
                    help="row-tile-shard each frame over this many devices")
     v.add_argument("--trace-dir", default=None, dest="trace_dir",
                    help="profile the stream: DIR/trace.json (a Chrome trace) and "
-                   "DIR/counters.json (the loader's takes and starved takes)")
+                   "DIR/counters.json (the loader's takes and starved takes, the census "
+                   "kernel's pairs)")
     v.set_defaults(fn=_cmd_video)
 
     f = sub.add_parser("foreground", help="README foreground-extraction flow")

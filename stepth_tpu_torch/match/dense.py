@@ -11,7 +11,10 @@ backend).
 
 Census descriptors are stored as **int32 bit patterns** (the reference uses
 uint32): torch has no shift for uint32 on every device, and a Hamming
-distance only needs the bits.
+distance only needs the bits. :func:`census_pair`, the census of the
+kernels' pipelines, launches the census kernel (``csrc/fused_census.cu``)
+for CUDA tensors; :func:`census_pair_plain` is its plain version, and the
+kernels' plain versions take their census from it on any device.
 """
 
 from __future__ import annotations
@@ -21,8 +24,18 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.utils import tracing
+
+_CENSUS_MAX_RADIUS = 7  # census windows up to 15 (7 planes), the widest K2 and K6 take
+CENSUS = kernels.Kernel(
+    "census",
+    "stepth_census_pair",
+    [kernels.PTR] * 3 + [kernels.INT] * 3,
+    source="stepth_tpu_torch/csrc/fused_census.cu",
+    replaces="none (the XLA glue of stepth_tpu/match/dense.py:57 census_transform)",
+)
 
 
 class MatchResult(NamedTuple):
@@ -102,11 +115,47 @@ def census_planes(gray: torch.Tensor, window: int = 7) -> torch.Tensor:
     return torch.stack(planes).contiguous()
 
 
+def census_plane_count(window: int) -> int:
+    """P, the int32 planes that hold a census window's (2·(window // 2) +
+    1)² − 1 neighbour bits."""
+    k = 2 * (window // 2) + 1
+    return (k * k - 1 + 31) // 32
+
+
 @tracing.annotate("stepth/census")
-def census_pair(left: torch.Tensor, right: torch.Tensor, window: int = 7):
-    """Census planes [P, H, W] of both views of a pair, in one pass."""
+def census_pair_plain(left: torch.Tensor, right: torch.Tensor, window: int = 7):
+    """Census planes [P, H, W] of both views of a pair, in one pass of
+    :func:`census_planes`, on any device: the census kernel's plain version,
+    and the census of the kernels' plain versions."""
     planes = census_planes(torch.stack([left, right]), window)
     return planes[:, 0].contiguous(), planes[:, 1].contiguous()
+
+
+@tracing.annotate("stepth/census")
+def census_pair(left: torch.Tensor, right: torch.Tensor, window: int = 7):
+    """Census planes [P, H, W] of both views of a pair: one launch of the
+    census kernel for CUDA tensors (census windows 2–15; f32, 2-D, one
+    shape, contiguous, else it raises), :func:`census_pair_plain` for CPU
+    tensors. Bit for bit the same planes; counts ``census.kernel`` or
+    ``census.plain`` once a pair, by the branch taken."""
+    if left.device.type == "cpu":
+        tracing.count("census.plain")
+        # the plain census without its own span: this call's is open
+        return census_pair_plain.__wrapped__(left, right, window)
+    kernels.check_cuda_tensor("census left", left, torch.float32, 2)
+    kernels.check_cuda_tensor("census right", right, torch.float32, 2)
+    if right.shape != left.shape or right.device != left.device:
+        raise ValueError(f"census: left {tuple(left.shape)} on {left.device} / right "
+                         f"{tuple(right.shape)} on {right.device} differ")
+    r = window // 2
+    if not 1 <= r <= _CENSUS_MAX_RADIUS:
+        raise ValueError(f"census: the kernel takes census windows 2-15, got {window}")
+    h, w = left.shape
+    planes = torch.empty((2, census_plane_count(window), h, w), dtype=torch.int32,
+                         device=left.device)
+    CENSUS.launch(left.device, left.data_ptr(), right.data_ptr(), planes.data_ptr(), h, w, r)
+    tracing.count("census.kernel")
+    return planes[0], planes[1]
 
 
 def census_transform(gray: torch.Tensor, window: int = 7) -> torch.Tensor:

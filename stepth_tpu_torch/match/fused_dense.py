@@ -10,8 +10,9 @@ descriptor there (column 0's descriptor where ``x − d < 0``), a zero-padded
 ``best ∈ [1, D−2]``, the optional uniqueness test and the right-view WTA
 ``costR(x, d) = costL(x + d, d)``.
 
-Census descriptors are computed once per image in torch
-(``dense.census_planes``, int32 [P, H, W]) and handed to the kernel. The
+Census descriptors are computed once per pair (``dense.census_pair``: the
+census kernel; the plain version takes ``dense.census_pair_plain``), int32
+[P, H, W], and handed to the kernel. The
 kernel returns its right view packed, ``(f32 cost bits << 32) | d`` per
 pixel in an int64 buffer that :func:`raw_match` fills first and decodes
 (its blocks merge the right view by ``atomicMin`` on that buffer). It takes
@@ -105,12 +106,12 @@ def box_cost(lg, rg, planes, cfg: MatchConfig, d: int, row_ok) -> torch.Tensor:
 
 def cost_inputs(lg, rg, cfg: MatchConfig, g_row0: int = 0, g_h: Optional[int] = None):
     """What :func:`box_cost` reads besides the images: the census planes
-    (``None`` for SAD/SSD) and the in-image rows [H, 1] of an input that
+    (``dense.census_pair_plain``; ``None`` for SAD/SSD) and the in-image rows [H, 1] of an input that
     starts at global row ``g_row0`` of an image ``g_h`` rows tall."""
     h = lg.shape[0]
     gr = g_row0 + torch.arange(h, device=lg.device)
     row_ok = ((gr >= 0) & (gr < (h if g_h is None else g_h)))[:, None]
-    planes = dense.census_pair(lg, rg, cfg.census_window) if cfg.cost == "census" else None
+    planes = dense.census_pair_plain(lg, rg, cfg.census_window) if cfg.cost == "census" else None
     return planes, row_ok
 
 

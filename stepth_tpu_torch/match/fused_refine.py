@@ -205,11 +205,12 @@ def _region_margin(cfg: MatchConfig, radius: int) -> int:
     return M
 
 
-def _images(lg, rg, cfg: MatchConfig):
-    """The matched images as planes [P, H, W]: census descriptors (int32),
-    or the gray image itself (P = 1)."""
+def _images_plain(lg, rg, cfg: MatchConfig):
+    """The matched images as planes [P, H, W] for K2's plain version: census
+    descriptors (int32, ``dense.census_pair_plain``), or the gray image
+    itself (P = 1)."""
     if cfg.cost == "census":
-        return dense.census_pair(lg, rg, cfg.census_window)
+        return dense.census_pair_plain(lg, rg, cfg.census_window)
     return lg[None], rg[None]
 
 
@@ -271,7 +272,7 @@ def refine_planned_plain(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
     col_ok = (xs >= 0) & (xs < w)
     in_img = row_ok[:, :, None, None] & col_ok[None, None]  # [nr, SR, nc, Q]
     yc = ys.clamp(0, h - 1)
-    lsrc, rsrc = _images(lg, rg, cfg)
+    lsrc, rsrc = _images_plain(lg, rg, cfg)
     P = lsrc.shape[0]
     left = lsrc[:, yc][..., xs.clamp(0, w - 1)]  # [P, nr, SR, nc, Q]
     right_rows = rsrc[:, yc]  # [P, nr, SR, w]
@@ -379,7 +380,7 @@ def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
         raise ValueError(f"refine: plan {nr}x{nc} tiles does not cover {h}x{w}")
     images = (lg.data_ptr(), rg.data_ptr(), None, None, 0)
     if cfg.cost == "census":
-        lc, rc = _images(lg, rg, cfg)
+        lc, rc = dense.census_pair(lg, rg, cfg.census_window)
         images = (None, None, lc.data_ptr(), rc.data_ptr(), lc.shape[0])
     out = torch.empty_like(lg)
     # all ones: the u64 start value atomicMin never keeps

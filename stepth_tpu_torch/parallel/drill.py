@@ -82,7 +82,7 @@ import torch.distributed as dist
 
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.fusion import ba, geometry, resumable
-from stepth_tpu_torch.match import fused_dense, fused_post, fused_refine, fused_sgm
+from stepth_tpu_torch.match import dense, fused_dense, fused_post, fused_refine, fused_sgm
 from stepth_tpu_torch.ops import fused_remap
 from stepth_tpu_torch.parallel import (
     comm_model, distributed, sgm_pallas_sharded, sgm_sharded, sharded,
@@ -94,9 +94,9 @@ MATCH_MODES = ("match", "sgm", "sgm-pallas", "hierarchical", "ba")
 MODES = MATCH_MODES + ("resumable", "failure", "hung")
 
 KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
-           "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3, "K4": fused_post.K4,
-           "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7, "K8": fused_sgm.K8,
-           "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
+           "census": dense.CENSUS, "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3,
+           "K4": fused_post.K4, "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7,
+           "K8": fused_sgm.K8, "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
 
 # the BA problems: cameras, points, seed, pixel noise, LM and CG iterations,
 # a checkpoint every ``every`` (resumable) and the cost the solve must reach
