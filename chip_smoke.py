@@ -229,7 +229,7 @@ import numpy as np
 import torch
 
 from stepth_tpu_torch.parallel import distributed
-from stepth_tpu_torch.parallel.drill import BA_SIZES, make_clip, make_pair
+from stepth_tpu_torch.parallel.drill import BA_SIZES, checked_stages, make_clip, make_pair
 
 SEED = 0  # seed of the smooth pair, the clip and the random maps
 REPS = 10  # timed runs per measurement (median)
@@ -1199,37 +1199,9 @@ def mapping_run(world, model, dev, ckpt, ba_points=MAP_BA_POINTS, lm=MAP_LM, cg=
     return out
 
 
-def paired_path(tag, err):
-    """A matcher pipeline (a ``fused_refine._Path``) whose every stage runs
-    the kernel's wrapper and its plain version on the same inputs, holds
-    their outputs equal (NaN at the same pixels, every other value in the
-    same bits: ``MAX_ERR`` is 0; masks equal) and passes the wrapper's
-    outputs on (equal to the plain ones, laid out as the main path lays
-    them): driven through ``fused_refine``'s own loops, it checks each
-    kernel at the shapes and plans the main path gives it. Returns the
-    path and a dict of each kernel's checked calls and shapes."""
-    from stepth_tpu_torch.match import fused_dense, fused_post, fused_refine
-    from stepth_tpu_torch.parallel.drill import paired
-
-    seen = {}
-
-    def pair(names, fused, plain):
-        return paired(tag, names, fused, plain, seen, err)
-
-    def no_sgm(*_args, **_kw):
-        raise AssertionError(f"{tag}: the SGM coarse level is not on this path")
-
-    path = fused_refine._Path(
-        pair(("K1",), fused_dense.raw_match, fused_dense.raw_match_plain), no_sgm,
-        pair(("K2", "K2 emit"), fused_refine.refine_level, fused_refine.refine_level_plain),
-        pair(("K4",), fused_post.lr_consistency_fused, fused_post.lr_consistency_plain),
-        pair(("K5",), fused_post.fill_invalid_fused, fused_post.fill_invalid_plain),
-        pair(("K3",), fused_post.median3_fused, fused_post.median3_plain))
-    return path, seen
-
-
 def print_paired(tag, seen):
-    """One line: the kernels a ``paired_path`` checked, their calls and shapes."""
+    """One line: the kernels a ``drill.checked_stages`` table checked, their
+    calls and shapes."""
     print(f"  {tag}, stage by stage against the plain versions, bit-equal: " + "; ".join(
         f"{k} {n}x at " + ", ".join("x".join(map(str, s)) for s in sorted(shapes))
         for k, (n, shapes) in seen.items()))
@@ -1409,8 +1381,8 @@ def mapping_flows(dev, card, drive, err):
     and peak memory, the device's busy share over one run (a
     ``device_trace``), the accuracy checks, the resumable and repeated BA
     bit for bit, the card's BA and fusion against CPU tensors, every kernel
-    call of the clip against its plain version (``paired_path``), BA's
-    segment sums timed both ways (``segsum_times``); b. the two-view flow at
+    call of the clip against its plain version (``drill.checked_stages``),
+    BA's segment sums timed both ways (``segsum_times``); b. the two-view flow at
     160×224 (K11 twice, K1–K3), its kernels against their plain versions,
     the example's pose and depth checks and the corner set against the
     CPU's. Returns the clip's launch counts."""
@@ -1544,18 +1516,19 @@ def mapping_flows(dev, card, drive, err):
             raise AssertionError("fuse card vs CPU: under 99.9% within 1e-5")
 
         # the clip's kernels at the shapes and plans the clip gives them,
-        # against their plain versions; the checked path's output is the
-        # driven video's
-        path, seen = paired_path("mapping clip", err)
+        # against their plain versions, through fused_refine's own loops; the
+        # checked path's output is the driven video's
+        seen = {}
         checked = fused_refine._match_temporal(
-            path, torch.as_tensor(world["lefts"], device=dev),
+            checked_stages("mapping clip", seen, err),
+            torch.as_tensor(world["lefts"], device=dev),
             torch.as_tensor(world["rights"], device=dev), model.match, model.pyramid, 4,
             64, model.lr_check, model._coarse(), None, model.sgm)  # video()'s tile_rows
         if not (torch.equal(checked.disparity, out["match"].disparity)
                 and torch.equal(checked.valid, out["match"].valid)):
             raise AssertionError("mapping clip: the checked path's output is not the video's")
         print_paired(f"mapping clip ({MAP_KEYFRAMES} frames, keyframes every 4)", seen)
-        for k in ("K1", "K2", "K2 emit", "K3", "K4", "K5"):
+        for k in ("K1", "K2 plan", "K2", "K2 emit", "K3", "K4", "K5"):
             if seen[k][0] != launches[k]:
                 raise AssertionError(f"mapping clip: {k} checked {seen[k][0]} times, "
                                      f"launched {launches[k]}")
@@ -1582,9 +1555,9 @@ def mapping_flows(dev, card, drive, err):
         if not bits_equal(fused_remap.remap_bilinear_plain(img, m), warped):
             raise AssertionError(f"two-view: K11 ({side} view) differs from its plain version")
         err("K11", 0.0)
-    path, seen = paired_path("two-view", err)
-    tv_model = got["model"]
-    checked = fused_refine._match_hierarchical(path, *got["rectified"], tv_model.match,
+    seen, tv_model = {}, got["model"]
+    checked = fused_refine._match_hierarchical(checked_stages("two-view", seen, err),
+                                               *got["rectified"], tv_model.match,
                                                tv_model.pyramid, 64, False, "wta", None)
     if not torch.equal(checked.disparity, got["match"].disparity):
         raise AssertionError("two-view: the checked path's output is not the model's")
@@ -1744,9 +1717,8 @@ def multiprocess_drills(card):
                 for k, v in got.items():
                     launches[r][k] = launches[r].get(k, 0) + v
                 checked = nums[r][mode]["paired"]
-                # the plan runs inside the refine stage, which K2's calls
-                # count, and the census inside the K1 and K2 stages
-                stages = {"K2 plan": ("K2",), "census": ("K1", "K2")}
+                # the census runs inside the K1, K2 and K6 stages
+                stages = {"census": ("K1", "K2", "K6")}
                 if any(sum(checked.get(st, [0])[0] for st in stages.get(k, (k,))) < v
                        for k, v in DRILL_LAUNCHES[mode].items()):
                     raise AssertionError(f"drill {mode}: rank {r} checked {checked}")
@@ -1956,11 +1928,7 @@ def main() -> int:
     # beside phases 3-8
     oracle_run = start_oracle_depth()
 
-    KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
-               "census": dense.CENSUS, "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3,
-               "K4": fused_post.K4, "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7,
-               "K8": fused_sgm.K8, "K9": fused_sgm.K9, "K10": fused_sgm.K10,
-               "K11": fused_remap.K11}
+    KERNELS = kernels.registry()
     NOT_WTA = {"K6": 0, "K7": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0}  # off the WTA paths
     errs = {n: 0.0 for n in KERNELS}
     times = {}
@@ -2908,13 +2876,14 @@ def main() -> int:
         if ndir == 4:
             sharded_launches, run4, model4, unsharded4 = launches, run, m, unsharded
             check_same(f"{tag} vs its plain path", sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
-                left, right, sgm_cfg, s_cfg, mesh3, plain=True), res)
+                left, right, sgm_cfg, s_cfg, mesh3, stages=fused_refine.PLAIN), res)
     tag = "path 3 sharded, sgm-pallas 4 directions windowed (warm-up 16), 3 shards"
     print(f"== end to end: {tag}, {H}x{W}")
     res_w, _ = drive_checked(tag, lambda: run4(left, right, exact=False, warmup=16),
                              {"K6": 3, "K7": 12, "K9": 3, "K4": 3, "K5": 3, "K3": 3})
     check_same(f"{tag} vs its plain path", sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
-        left, right, sgm_cfg, sgm4, mesh3, exact=False, warmup=16, plain=True), res_w)
+        left, right, sgm_cfg, sgm4, mesh3, exact=False, warmup=16,
+        stages=fused_refine.PLAIN), res_w)
     # the reference's statistical rule (tests/test_sgm_pallas_sharded.py:
     # 101-124) against the unsharded frame; "far" = rows at least 64 from a seam
     d = (res_w.disparity - unsharded4.disparity).abs()
@@ -2938,7 +2907,7 @@ def main() -> int:
     check_median(tag, res.disparity)
     check_same(f"{tag} vs unsharded flagship()", flag(left, right), res)
     check_same(f"{tag} vs its plain path", sharded.match_pair_sharded_pallas(
-        left, right, flag.match, mesh4, plain=True), res)
+        left, right, flag.match, mesh4, stages=fused_refine.PLAIN), res)
 
     H2 = H - H % 64  # 1024: 1080 rows admit no mesh at levels=4 (see the docstring)
     l2, r2 = left[:H2], right[:H2]
@@ -2963,7 +2932,7 @@ def main() -> int:
             exact=exact)
         check_same(f"{tag} vs its plain path", sharded.match_hierarchical_sharded(
             l2, r2, census, pyr, mesh4, coarse_backend=coarse, sgm=sgm4, lr_check=True,
-            plain=True), res)
+            stages=fused_refine.PLAIN), res)
         if coarse == "wta":
             prod4 = run
 
@@ -2976,7 +2945,7 @@ def main() -> int:
          "K3": 20})
     vwant = fused_refine.match_temporal_fused(cl2, cr2, census, pyr, 4, 32, lr_check=True)
     vplain = sharded.match_temporal_sharded(cl2, cr2, census, pyr, mesh4, keyframe_interval=4,
-                                            lr_check=True, plain=True)
+                                            lr_check=True, stages=fused_refine.PLAIN)
     for t, sft in enumerate(shifts):
         check_median(f"sharded video frame {t}", vres2.disparity[t], float(sft))
         frame_t = [dense.MatchResult(*(f[t] for f in r)) for r in (vwant, vplain, vres2)]
@@ -2992,7 +2961,7 @@ def main() -> int:
         {"K1": 2, "K2": 6, "K2 plan": 6, "census": 8, "K2 emit": 2, "K4": 2, "K5": 2,
          "K3": 2})
     bplain = sharded.match_batch_hierarchical_sharded(bl2, br2, census, pyr, mesh_d,
-                                                      lr_check=True, plain=True)
+                                                      lr_check=True, stages=fused_refine.PLAIN)
     for i, (sl_, sr_) in enumerate(((left, right), (bl, br))):
         got = dense.MatchResult(*(f[i] for f in bres))
         check_same(f"batch frame {i} vs unsharded production", prod(sl_, sr_), got)

@@ -429,16 +429,13 @@ def main() -> int:
     from stepth_tpu_torch.match import fused_post
     census = MatchConfig(num_disparities=128, window=9, cost="census")
     pyr = PyramidConfig(levels=4, coarsest_disparities=16)
-    fused_refine._match_hierarchical(
-        fused_refine.FUSED._replace(fill=capture("K5 production", fused_post.fill_invalid_fused),
-                                    median=capture("K3 production", fused_post.median3_fused)),
-        lg, rg, census, pyr, 64, True, "wta", None)
-    sgm_path = fused_sgm.FUSED._replace(fill=capture("K5 coarse", fused_post.fill_invalid_fused),
-                                        median=capture("K3 coarse", fused_post.median3_fused))
-    fused_refine._match_hierarchical(
-        fused_refine.FUSED._replace(sgm=lambda l_, r_, c_, s_, tile_rows=16:
-                                    fused_sgm._match_pair_sgm(sgm_path, l_, r_, c_, s_, None)),
-        lg, rg, census, pyr, 64, True, "sgm", None, SGMConfig(directions=4))
+    # each run's first fill and median: production's level 0 (the WTA coarse
+    # level has none), and path 2's coarse SGM level
+    for tag, coarse in (("production", "wta"), ("coarse", "sgm")):
+        fused_refine._match_hierarchical(
+            fused_refine.FUSED._replace(fill=capture(f"K5 {tag}", fused_post.fill_invalid_fused),
+                                        median=capture(f"K3 {tag}", fused_post.median3_fused)),
+            lg, rg, census, pyr, 64, True, coarse, None, SGMConfig(directions=4))
     disp, valid = post_in["K5 production"]
     rand = torch.rand((H, W), generator=gen, device=dev) * 100
     rand_valid = torch.rand((H, W), generator=gen, device=dev) >= 0.3

@@ -11,14 +11,20 @@ Every exported C function launches on the stream it is given and returns
 ``cudaGetLastError()`` after the launch; :meth:`Kernel.launch` raises on a
 non-zero code and counts the launch. There is no fallback: a missing
 toolchain or a failed build raises.
+
+Each :class:`Kernel` records itself in :data:`REGISTRY` under the short key
+the tools print (``K1`` … ``K11``, ``K2 plan``, ``census``);
+:func:`registry` returns every kernel of the package, in key order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import pathlib
+import pkgutil
 import shutil
 import subprocess
 import threading
@@ -39,6 +45,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}  # set by load(): path, seconds, built, ptxas log
+REGISTRY: dict = {}  # key -> Kernel, filled as each module defines its kernels
 
 
 def _sources() -> Sequence[pathlib.Path]:
@@ -122,11 +129,17 @@ PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class Kernel:
-    """One exported C launcher: its signature, where its source lives, which
-    TPU kernel it replaces, and ``launches``, the number of times it was
-    launched (a plain counter; callers may reset it to 0)."""
+    """One exported C launcher: its key in :data:`REGISTRY`, its signature,
+    where its source lives, which TPU kernel it replaces, and ``launches``,
+    the number of times it was launched (a plain counter; callers may reset
+    it to 0)."""
 
-    def __init__(self, name: str, symbol: str, argtypes, source: str, replaces: str):
+    def __init__(self, key: str, name: str, symbol: str, argtypes, source: str,
+                 replaces: str):
+        if key in REGISTRY:
+            raise ValueError(f"kernel key {key!r} is already registered")
+        REGISTRY[key] = self
+        self.key = key
         self.name = name
         self.symbol = symbol
         self.argtypes = list(argtypes)
@@ -148,6 +161,17 @@ class Kernel:
             msg = load().stepth_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: CUDA launch failed ({rc}: {msg})")
         self.launches += 1
+
+
+def registry() -> dict:
+    """Every kernel of the package, ``key: Kernel``, in the order ``K1``,
+    ``K2``, ``K2 emit`` … ``K11``, ``census``. Imports each module of the
+    package first, so the answer does not depend on what the caller
+    imported."""
+    for mod in pkgutil.walk_packages([str(PKG_DIR)], "stepth_tpu_torch."):
+        if not mod.name.endswith("__main__"):
+            importlib.import_module(mod.name)
+    return dict(sorted(REGISTRY.items(), key=lambda kv: (len(kv[0].split()[0]), kv[0])))
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int):

@@ -31,6 +31,7 @@ from stepth_tpu_torch.utils import tracing
 _CENSUS_MAX_RADIUS = 7  # census windows up to 15 (7 planes), the widest K2 and K6 take
 CENSUS = kernels.Kernel(
     "census",
+    "census",
     "stepth_census_pair",
     [kernels.PTR] * 3 + [kernels.INT] * 3,
     source="stepth_tpu_torch/csrc/fused_census.cu",

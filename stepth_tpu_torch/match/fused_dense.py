@@ -42,6 +42,7 @@ _MAX_PLANES = 4  # census descriptors of up to 128 bits (census windows up to 11
 _RIGHT_START = 0x7149F2CA << 32
 
 K1 = kernels.Kernel(
+    "K1",
     "K1 fused_dense",
     "stepth_fused_dense",
     [kernels.PTR] * 4 + [kernels.INT] + [kernels.PTR] * 4 + [kernels.INT] * 6
@@ -245,12 +246,12 @@ def raw_match(
     return disp, disp_r, cbest, valid
 
 
-def _match_pair(left, right, cfg, tile_rows, device, match_fn, fill_fn, median_fn):
+def _match_pair(stages, left, right, cfg, tile_rows, device):
     lg = dense.grayscale(left, device)
     rg = dense.grayscale(right, device)
-    disp, _, cbest, valid_f = match_fn(lg, rg, cfg, tile_rows)
+    disp, _, cbest, valid_f = stages.match(lg, rg, cfg, tile_rows)
     valid = valid_f > 0.5
-    disp = median_fn(fill_fn(disp, valid))
+    disp = stages.median(stages.fill(disp, valid))
     return dense.MatchResult(disparity=disp, valid=valid, cost=cbest)
 
 
@@ -261,12 +262,14 @@ def match_pair_fused(left, right, cfg: MatchConfig = MatchConfig(), tile_rows: i
     ``cfg.lr_threshold``), then the occlusion fill K5 and the median K3.
     ``left``/``right``: gray or RGB tensors, or arrays (on ``device``, the card
     by default)."""
-    return _match_pair(left, right, cfg, tile_rows, device, raw_match,
-                       fused_post.fill_invalid_fused, fused_post.median3_fused)
+    from stepth_tpu_torch.match.fused_refine import FUSED
+
+    return _match_pair(FUSED, left, right, cfg, tile_rows, device)
 
 
 def match_pair_plain(left, right, cfg: MatchConfig = MatchConfig(), tile_rows: int = 32,
                      device=None) -> dense.MatchResult:
     """The same through the kernels' plain versions, on any device."""
-    return _match_pair(left, right, cfg, tile_rows, device, raw_match_plain,
-                       fused_post.fill_invalid_plain, fused_post.median3_plain)
+    from stepth_tpu_torch.match.fused_refine import PLAIN
+
+    return _match_pair(PLAIN, left, right, cfg, tile_rows, device)

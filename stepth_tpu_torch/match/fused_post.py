@@ -27,6 +27,7 @@ from stepth_tpu_torch import kernels
 from stepth_tpu_torch.match import dense
 
 K3 = kernels.Kernel(
+    "K3",
     "K3 median3",
     "stepth_median3",
     [kernels.PTR, kernels.PTR, kernels.INT, kernels.INT],
@@ -34,6 +35,7 @@ K3 = kernels.Kernel(
     replaces="stepth_tpu/match/pallas_post.py:47",
 )
 K4 = kernels.Kernel(
+    "K4",
     "K4 lr_check",
     "stepth_lr_check",
     [kernels.PTR] * 3 + [kernels.INT] * 3 + [kernels.FLOAT],
@@ -41,6 +43,7 @@ K4 = kernels.Kernel(
     replaces="stepth_tpu/match/pallas_post.py:84",
 )
 K5 = kernels.Kernel(
+    "K5",
     "K5 fill_invalid",
     "stepth_fill_invalid",
     [kernels.PTR] * 3 + [kernels.INT] * 2,

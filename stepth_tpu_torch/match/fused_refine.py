@@ -1,18 +1,20 @@
 """Hierarchical matching: the refine plan, kernel K2 with its plain version,
-the coarse-to-fine pipeline and its temporally seeded video loop (twin of
-``stepth_tpu/match/pallas_refine.py:377-789``).
+the matcher's stage table, the coarse-to-fine pipeline and its temporally
+seeded video loop (twin of ``stepth_tpu/match/pallas_refine.py:377-789``).
+
+:class:`Stages` is the matcher's one table of stages, where the choice
+between the kernels (:data:`FUSED`) and their plain versions (:data:`PLAIN`)
+is made; every pipeline of the matcher takes it as its first argument.
 
 A refine level searches ``base ± R`` around the upsampled coarser disparity,
 where ``base`` is fixed per (tile_rows × 128-column) tile: the plan
 (:func:`tile_windows_from_prior`) gives each tile up to ``max_windows`` bases
-and the number ``nw`` to run. The plan is part of the output contract:
-:func:`plan_level` builds it with K2_PLAN for CUDA tensors and with the plain
-torch version for CPU tensors; the plain pipeline (:data:`PLAIN`) plans with
-:func:`plan_level_plain`, plain torch on any device.
-
-:func:`refine_level` plans a level and hands the plan to
-:func:`refine_planned`, which launches K2 for CUDA tensors and runs
-:func:`refine_planned_plain` for CPU tensors.
+and the number ``nw`` to run. The plan is part of the output contract and
+a stage of its own: :func:`plan_level` (``FUSED.plan``) builds it with
+K2_PLAN for CUDA tensors and with the plain torch version for CPU tensors;
+:func:`plan_level_plain` (``PLAIN.plan``) in plain torch on any device. The
+``refine`` stage, :func:`refine_planned`, then launches K2 for CUDA tensors
+and runs :func:`refine_planned_plain` for CPU tensors.
 
 ``lr=True`` also returns the right-view disparity ``dR`` (−1e6 where no
 candidate covered the column). Its contract is the reference kernel's: each
@@ -42,6 +44,7 @@ _CW = 256  # the reference's cost-region width (the right view's contract)
 _UNTOUCHED = torch.iinfo(torch.int64).max  # start of the plain scatter-min
 
 K2 = kernels.Kernel(
+    "K2",
     "K2 fused_refine",
     "stepth_fused_refine",
     [kernels.PTR] * 4 + [kernels.INT] + [kernels.PTR] * 4 + [kernels.INT] * 12,
@@ -49,6 +52,7 @@ K2 = kernels.Kernel(
     replaces="stepth_tpu/match/pallas_refine.py:63",
 )
 K2_EMIT = kernels.Kernel(
+    "K2 emit",
     "K2 right-view emit",
     "stepth_refine_emit_r",
     [kernels.PTR] * 3 + [kernels.INT] * 6,
@@ -56,6 +60,7 @@ K2_EMIT = kernels.Kernel(
     replaces="stepth_tpu/match/pallas_refine.py:63",
 )
 K2_PLAN = kernels.Kernel(
+    "K2 plan",
     "K2 refine plan",
     "stepth_refine_plan",
     [kernels.PTR] * 4 + [kernels.INT] * 7,
@@ -396,13 +401,55 @@ def refine_planned(lg, rg, bases, nw, cfg: MatchConfig, radius: int,
     return out, emit_right(packed, bases, tile_rows, radius)
 
 
+class Stages(NamedTuple):
+    """The stages of the matcher's pipelines, each a kernel's wrapper
+    (:data:`FUSED`) or its plain version (:data:`PLAIN`);
+    :data:`STAGE_KERNELS` names the kernel of each stage's outputs."""
+
+    match: Callable  # K1, + K4 with cfg.lr_threshold
+    plan: Callable  # K2_PLAN
+    refine: Callable  # census, K2 and its right-view emit, for a given plan
+    volume: Callable  # census, K6
+    scan: Callable  # K7
+    scan_wta: Callable  # K8
+    wta: Callable  # K9, + K4 with cfg.lr_threshold
+    scan_carry: Callable  # K10, the sharded relay's
+    lr: Callable  # K4
+    fill: Callable  # K5
+    median: Callable  # K3
+
+
+FUSED = Stages(
+    match=fused_dense.raw_match, plan=plan_level, refine=refine_planned,
+    volume=fused_sgm.aggregated_volume, scan=fused_sgm.scan_direction,
+    scan_wta=fused_sgm.scan_wta_direction, wta=fused_sgm.wta_from_volume,
+    scan_carry=fused_sgm.scan_direction_carry, lr=fused_post.lr_consistency_fused,
+    fill=fused_post.fill_invalid_fused, median=fused_post.median3_fused,
+)
+PLAIN = Stages(
+    match=fused_dense.raw_match_plain, plan=plan_level_plain, refine=refine_planned_plain,
+    volume=fused_sgm.aggregated_volume_plain, scan=fused_sgm.scan_direction_plain,
+    scan_wta=fused_sgm.scan_wta_direction_plain, wta=fused_sgm.wta_from_volume_plain,
+    scan_carry=fused_sgm.scan_direction_carry_plain, lr=fused_post.lr_consistency_plain,
+    fill=fused_post.fill_invalid_plain, median=fused_post.median3_plain,
+)
+
+# each stage's outputs by the key of the kernel that makes them (the last
+# key repeats): the WTA's validity is K4's LR check of K9's maps
+STAGE_KERNELS = {
+    "match": ("K1",), "plan": ("K2 plan",), "refine": ("K2", "K2 emit"), "volume": ("K6",),
+    "scan": ("K7",), "scan_wta": ("K8",), "wta": ("K9", "K9", "K9", "K4"),
+    "scan_carry": ("K10",), "lr": ("K4",), "fill": ("K5",), "median": ("K3",),
+}
+
+
 @tracing.annotate("stepth/refine")
-def _refine_level(plan_fn, planned_fn, left_g, right_g, prior, cfg, radius, max_base,
-                  tile_rows, g_row0, g_h, lr, max_windows):
+def _refine_level(stages: Stages, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
+                  g_row0, g_h, lr, max_windows):
     if prior.shape != left_g.shape:
         raise ValueError(f"prior {tuple(prior.shape)} != image {tuple(left_g.shape)}")
-    bases, nw, tile_rows = plan_fn(prior, tile_rows, max_base, radius, max_windows)
-    return planned_fn(left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h, lr)
+    bases, nw, tile_rows = stages.plan(prior, tile_rows, max_base, radius, max_windows)
+    return stages.refine(left_g, right_g, bases, nw, cfg, radius, tile_rows, g_row0, g_h, lr)
 
 
 def refine_level(
@@ -422,8 +469,8 @@ def refine_level(
     version on CPU tensors (:func:`refine_planned`). Same arguments and
     outputs as the reference's ``refine_level`` without ``interpret``:
     f32[H, W], or ``(disp, disp_r)`` with ``lr``."""
-    return _refine_level(plan_level, refine_planned, left_g, right_g, prior, cfg, radius,
-                         max_base, tile_rows, g_row0, g_h, lr, max_windows)
+    return _refine_level(FUSED, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
+                         g_row0, g_h, lr, max_windows)
 
 
 def refine_level_plain(
@@ -441,45 +488,25 @@ def refine_level_plain(
 ):
     """The plain version of :func:`refine_level`, on any device: the plain
     plan (:func:`plan_level_plain`), then K2's plain version."""
-    return _refine_level(plan_level_plain, refine_planned_plain, left_g, right_g, prior, cfg,
-                         radius, max_base, tile_rows, g_row0, g_h, lr, max_windows)
-
-
-class _Path(NamedTuple):
-    """The functions one pipeline runs: the kernels' wrappers, or their plain
-    versions."""
-
-    match: Callable
-    sgm: Callable
-    refine: Callable
-    lr: Callable
-    fill: Callable
-    median: Callable
-
-
-FUSED = _Path(fused_dense.raw_match, fused_sgm.match_pair_sgm_fused, refine_level,
-              fused_post.lr_consistency_fused, fused_post.fill_invalid_fused,
-              fused_post.median3_fused)
-PLAIN = _Path(fused_dense.raw_match_plain, fused_sgm.match_pair_sgm_plain, refine_level_plain,
-              fused_post.lr_consistency_plain, fused_post.fill_invalid_plain,
-              fused_post.median3_plain)
+    return _refine_level(PLAIN, left_g, right_g, prior, cfg, radius, max_base, tile_rows,
+                         g_row0, g_h, lr, max_windows)
 
 
 @tracing.annotate("stepth/post")
-def _post(path: _Path, disp, disp_r, cfg: MatchConfig, max_base: int, lr_check: bool):
+def _post(stages: Stages, disp, disp_r, cfg: MatchConfig, max_base: int, lr_check: bool):
     """The epilogue: LR check against ``disp_r`` (threshold
     ``cfg.lr_threshold``, 1.0 when unset; ``D = max_base``), occlusion fill
     and median with ``lr_check``; the median alone without."""
     if lr_check:
         thr = 1.0 if cfg.lr_threshold is None else float(cfg.lr_threshold)
-        valid = path.lr(disp, disp_r, thr, max_base)
-        disp = path.median(path.fill(disp, valid))
+        valid = stages.lr(disp, disp_r, thr, max_base)
+        disp = stages.median(stages.fill(disp, valid))
         return dense.MatchResult(disparity=disp, valid=valid, cost=torch.zeros_like(disp))
-    disp = path.median(disp)
+    disp = stages.median(disp)
     return dense.MatchResult(disparity=disp, valid=disp >= 0, cost=torch.zeros_like(disp))
 
 
-def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
+def _match_hierarchical(stages: Stages, left, right, cfg, pyr, tile_rows, lr_check,
                         coarse_backend, device, sgm: Optional[SGMConfig] = None
                         ) -> dense.MatchResult:
     if coarse_backend not in ("wta", "sgm"):
@@ -502,12 +529,12 @@ def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
     )
     with tracing.span("stepth/coarse"):
         if coarse_backend == "wta":
-            disp = path.match(lefts[-1], rights[-1], coarse_cfg,
-                              tile_rows=min(tile_rows, 16))[0]
-        else:  # the whole SGM matcher, epilogue included
-            disp = path.sgm(lefts[-1], rights[-1], coarse_cfg,
-                            SGMConfig() if sgm is None else sgm,
-                            tile_rows=min(tile_rows, 16)).disparity
+            disp = stages.match(lefts[-1], rights[-1], coarse_cfg,
+                                tile_rows=min(tile_rows, 16))[0]
+        else:  # the whole SGM pipeline on the same stages, epilogue included
+            disp = fused_sgm._match_pair_sgm(stages, lefts[-1], rights[-1], coarse_cfg,
+                                             SGMConfig() if sgm is None else sgm,
+                                             None).disparity
     max_base = pyr.coarsest_disparities
     disp_r = None
     for lvl in range(pyr.levels - 2, -1, -1):
@@ -515,14 +542,13 @@ def _match_hierarchical(path: _Path, left, right, cfg, pyr, tile_rows, lr_check,
         prior = pyramid.upsample2_disparity(disp, h, w)
         max_base = max_base * 2
         want_lr = lr_check and lvl == 0  # dR only at full resolution
-        out = path.refine(
-            lefts[lvl], rights[lvl], prior, cfg,
-            pyr.final_radius if lvl == 0 else pyr.refine_radius,
-            max_base, tile_rows, lr=want_lr,
-            max_windows=pyr.final_windows if lvl == 0 else pyr.refine_windows,
+        out = _refine_level(
+            stages, lefts[lvl], rights[lvl], prior, cfg,
+            pyr.final_radius if lvl == 0 else pyr.refine_radius, max_base, tile_rows, 0, None,
+            want_lr, pyr.final_windows if lvl == 0 else pyr.refine_windows,
         )
         disp, disp_r = out if want_lr else (out, None)
-    return _post(path, disp, disp_r, cfg, max_base, lr_check)
+    return _post(stages, disp, disp_r, cfg, max_base, lr_check)
 
 
 def match_hierarchical_fused(
@@ -539,7 +565,7 @@ def match_hierarchical_fused(
     """Coarse-to-fine matching through the kernels (twin of
     ``match_hierarchical_pallas``): grayscale, ``levels − 1`` downsamples,
     at the coarsest level K1 (``coarse_backend="wta"``) or the whole SGM
-    matcher ``fused_sgm.match_pair_sgm_fused`` with ``sgm`` (default
+    pipeline of ``fused_sgm.match_pair_sgm_fused`` with ``sgm`` (default
     ``SGMConfig()``; ``"sgm"``: K6, K7, K8 or K9, K5, K3), K2 at every finer
     level (``max_base`` doubling from ``coarsest_disparities``; level 0 uses
     ``final_radius``/``final_windows``, and with ``lr_check`` also returns
@@ -568,22 +594,22 @@ def match_hierarchical_plain(
                                coarse_backend, device, sgm)
 
 
-def seeded_frame(path: _Path, left, right, prior, cfg: MatchConfig, pyr: PyramidConfig,
+def seeded_frame(stages: Stages, left, right, prior, cfg: MatchConfig, pyr: PyramidConfig,
                  tile_rows: int = 64, lr_check: bool = False, device=None) -> dense.MatchResult:
-    """One seeded (non-key) video frame on ``path`` (:data:`FUSED` or
+    """One seeded (non-key) video frame on ``stages`` (:data:`FUSED` or
     :data:`PLAIN`): level-0 refine around ``prior``, the previous frame's
     disparity, with ``max_base = coarsest << (levels − 1)``, then the
     epilogue."""
     max_base = pyr.coarsest_disparities << (pyr.levels - 1)
-    out = path.refine(
-        dense.grayscale(left, device), dense.grayscale(right, device), prior, cfg,
-        pyr.final_radius, max_base, tile_rows, lr=lr_check, max_windows=pyr.final_windows,
+    out = _refine_level(
+        stages, dense.grayscale(left, device), dense.grayscale(right, device), prior, cfg,
+        pyr.final_radius, max_base, tile_rows, 0, None, lr_check, pyr.final_windows,
     )
     disp, disp_r = out if lr_check else (out, None)
-    return _post(path, disp, disp_r, cfg, max_base, lr_check)
+    return _post(stages, disp, disp_r, cfg, max_base, lr_check)
 
 
-def _match_temporal(path: _Path, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
+def _match_temporal(stages: Stages, lefts, rights, cfg, pyr, keyframe_interval, tile_rows,
                     lr_check, coarse_backend, device, sgm=None) -> dense.MatchResult:
     if lefts.ndim not in (3, 4):
         raise ValueError(f"expected [T,H,W] or [T,H,W,C], got {tuple(lefts.shape)}")
@@ -593,10 +619,10 @@ def _match_temporal(path: _Path, lefts, rights, cfg, pyr, keyframe_interval, til
     prev = None
     for i in range(lefts.shape[0]):
         if i % keyframe_interval == 0:
-            res = _match_hierarchical(path, lefts[i], rights[i], cfg, pyr, tile_rows,
+            res = _match_hierarchical(stages, lefts[i], rights[i], cfg, pyr, tile_rows,
                                       lr_check, coarse_backend, device, sgm)
         else:
-            res = seeded_frame(path, lefts[i], rights[i], prev, cfg, pyr, tile_rows,
+            res = seeded_frame(stages, lefts[i], rights[i], prev, cfg, pyr, tile_rows,
                                lr_check, device)
         prev = res.disparity
         frames.append(res)

@@ -26,9 +26,10 @@ backend).
   (``parallel/sgm_pallas_sharded.py``). A split scan relayed through it
   equals one continuous K7 scan bit for bit.
 
-:func:`match_pair_sgm_fused` keeps the reference's rule of which path runs:
-with 4 or 8 directions and ``D ≤ 128``, K7 for every direction but the last
-and K8 for ↑y (then K4 with LR); otherwise K7 for every direction and K9.
+The pipeline runs the stages of ``fused_refine``'s table and keeps the
+reference's rule of which path runs: with 4 or 8 directions and ``D ≤
+128``, K7 for every direction but the last and K8 for ↑y (then K4 with
+LR); otherwise K7 for every direction and K9.
 In f32 both give the same bits; with bf16 they differ where the reference's
 do (the unfused path rounds the last sum to bf16 before the WTA). Then K5
 and K3. Each frame adds one to the counter ``sgm.wta_fused`` or
@@ -51,7 +52,7 @@ same order as well.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -65,17 +66,17 @@ _SRC = "stepth_tpu_torch/csrc/fused_sgm.cu"
 _REF = "stepth_tpu/match/pallas_sgm.py"
 PTR, INT, FLOAT = kernels.PTR, kernels.INT, kernels.FLOAT
 
-K6 = kernels.Kernel("K6 sgm_volume", "stepth_sgm_volume",
+K6 = kernels.Kernel("K6", "K6 sgm_volume", "stepth_sgm_volume",
                     [PTR] * 4 + [INT, PTR] + [INT] * 8, source=_SRC, replaces=f"{_REF}:71")
-K7 = kernels.Kernel("K7 sgm_scan", "stepth_sgm_scan",
+K7 = kernels.Kernel("K7", "K7 sgm_scan", "stepth_sgm_scan",
                     [PTR] * 3 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:262")
-K8 = kernels.Kernel("K8 sgm_scan_wta", "stepth_sgm_scan_wta",
+K8 = kernels.Kernel("K8", "K8 sgm_scan_wta", "stepth_sgm_scan_wta",
                     [PTR, PTR, INT] + [PTR] * 4 + [INT] * 3 + [FLOAT] * 2 + [INT, FLOAT],
                     source=_SRC, replaces=f"{_REF}:748")
-K9 = kernels.Kernel("K9 sgm_wta", "stepth_sgm_wta",
+K9 = kernels.Kernel("K9", "K9 sgm_wta", "stepth_sgm_wta",
                     [PTR, INT] + [PTR] * 4 + [INT] * 4 + [FLOAT],
                     source=_SRC, replaces=f"{_REF}:581")
-K10 = kernels.Kernel("K10 sgm_scan_carry", "stepth_sgm_scan_carry",
+K10 = kernels.Kernel("K10", "K10 sgm_scan_carry", "stepth_sgm_scan_carry",
                      [PTR] * 5 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:398")
 
 _VOLUME_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -266,23 +267,20 @@ def scan_direction_carry(vol, acc, carry0, p1: float, p2: float, *, reverse: boo
     return out, carry
 
 
-def _aggregate(scan_fn, vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
+def _aggregate(stages, vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
     acc = None
     for axis, reverse, shift in directions(sgm.directions):
-        acc = scan_fn(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+        acc = stages.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     return acc
-
-
-def aggregate_plain(vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
-    """:func:`aggregate_fused` through K7's plain version."""
-    return _aggregate(scan_direction_plain, vol, sgm, p1, p2)
 
 
 def aggregate_fused(vol, sgm: SGMConfig, p1: float, p2: float) -> torch.Tensor:
     """All-directions path-cost sum over ``vol`` [D, H, W] in its type (twin
     of ``aggregate_pallas``): one K7 launch per direction, in the
     reference's order."""
-    return _aggregate(scan_direction, vol, sgm, p1, p2)
+    from stepth_tpu_torch.match.fused_refine import FUSED
+
+    return _aggregate(FUSED, vol, sgm, p1, p2)
 
 
 # ---- K9 ------------------------------------------------------------------
@@ -365,30 +363,7 @@ def scan_wta_direction(vol, acc, p1: float, p2: float, cfg: MatchConfig):
 # ---- the pipeline --------------------------------------------------------
 
 
-class _Path(NamedTuple):
-    """The functions the pipeline runs: the kernels' wrappers, or their
-    plain versions."""
-
-    volume: Callable
-    scan: Callable
-    scan_wta: Callable
-    wta: Callable
-    lr: Callable
-    fill: Callable
-    median: Callable
-    scan_carry: Callable  # the sharded relay's
-
-
-FUSED = _Path(aggregated_volume, scan_direction, scan_wta_direction, wta_from_volume,
-              fused_post.lr_consistency_fused, fused_post.fill_invalid_fused,
-              fused_post.median3_fused, scan_direction_carry)
-PLAIN = _Path(aggregated_volume_plain, scan_direction_plain, scan_wta_direction_plain,
-              wta_from_volume_plain, fused_post.lr_consistency_plain,
-              fused_post.fill_invalid_plain, fused_post.median3_plain,
-              scan_direction_carry_plain)
-
-
-def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
+def _match_pair_sgm(stages, left, right, cfg: MatchConfig, sgm: SGMConfig,
                     device) -> dense.MatchResult:
     fused_dense._check_cfg(cfg)
     dirs = directions(sgm.directions)
@@ -396,7 +371,7 @@ def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
     lg = dense.grayscale(left, device)
     rg = dense.grayscale(right, device)
     with tracing.span("stepth/sgm/volume"):
-        vol = path.volume(lg, rg, cfg, dtype)
+        vol = stages.volume(lg, rg, cfg, dtype)
     p1, p2 = sgm_mod.penalties(cfg, sgm)
     fused_wta = sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D
     tracing.count("sgm.wta_fused" if fused_wta else "sgm.wta_stored")
@@ -404,19 +379,19 @@ def _match_pair_sgm(path: _Path, left, right, cfg: MatchConfig, sgm: SGMConfig,
     for axis, reverse, shift in dirs[:-1] if fused_wta else dirs:
         with tracing.span("stepth/sgm/scan"), (tracing.span("stepth/sgm/diagonal") if shift
                                                else contextlib.nullcontext()):
-            acc = path.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
+            acc = stages.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     if fused_wta:
         with tracing.span("stepth/sgm/scan_wta"):
-            disp, disp_r, cbest, uok = path.scan_wta(vol, acc, p1, p2, cfg)
+            disp, disp_r, cbest, uok = stages.scan_wta(vol, acc, p1, p2, cfg)
     else:  # K9, and K4's LR check inside its wrapper
         with tracing.span("stepth/sgm/wta"):
-            disp, _, cbest, uok = path.wta(acc, cfg)
+            disp, _, cbest, uok = stages.wta(acc, cfg)
     with tracing.span("stepth/post"):
         valid = uok > 0.5
         if fused_wta and cfg.lr_threshold is not None:
-            valid = valid & path.lr(disp, disp_r, float(cfg.lr_threshold),
-                                    cfg.num_disparities)
-        disp = path.median(path.fill(disp, valid))
+            valid = valid & stages.lr(disp, disp_r, float(cfg.lr_threshold),
+                                      cfg.num_disparities)
+        disp = stages.median(stages.fill(disp, valid))
     return dense.MatchResult(disparity=disp, valid=valid, cost=cbest)
 
 
@@ -428,6 +403,8 @@ def match_pair_sgm_fused(left, right, cfg: MatchConfig = MatchConfig(),
     ``left``/``right``: gray or RGB tensors, or arrays (on ``device``, the card
     by default).
     ``tile_rows`` is accepted for signature parity and ignored."""
+    from stepth_tpu_torch.match.fused_refine import FUSED
+
     return _match_pair_sgm(FUSED, left, right, cfg, sgm, device)
 
 
@@ -435,4 +412,6 @@ def match_pair_sgm_plain(left, right, cfg: MatchConfig = MatchConfig(),
                          sgm: SGMConfig = SGMConfig(), tile_rows: int = 16,
                          device=None) -> dense.MatchResult:
     """The same pipeline through the kernels' plain versions, on any device."""
+    from stepth_tpu_torch.match.fused_refine import PLAIN
+
     return _match_pair_sgm(PLAIN, left, right, cfg, sgm, device)

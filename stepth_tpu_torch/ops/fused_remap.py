@@ -18,6 +18,7 @@ from stepth_tpu_torch import kernels
 from stepth_tpu_torch.ops import rectify
 
 K11 = kernels.Kernel(
+    "K11",
     "K11 remap_bilinear",
     "stepth_remap_bilinear",
     [kernels.PTR] * 3 + [kernels.INT] * 5 + [kernels.FLOAT],

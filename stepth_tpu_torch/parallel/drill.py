@@ -80,10 +80,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from stepth_tpu_torch import kernels
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.fusion import ba, geometry, resumable
-from stepth_tpu_torch.match import dense, fused_dense, fused_post, fused_refine, fused_sgm
-from stepth_tpu_torch.ops import fused_remap
+from stepth_tpu_torch.match import fused_refine
 from stepth_tpu_torch.parallel import (
     comm_model, distributed, sgm_pallas_sharded, sgm_sharded, sharded,
 )
@@ -92,11 +92,6 @@ from stepth_tpu_torch.utils import checkpoint
 
 MATCH_MODES = ("match", "sgm", "sgm-pallas", "hierarchical", "ba")
 MODES = MATCH_MODES + ("resumable", "failure", "hung")
-
-KERNELS = {"K1": fused_dense.K1, "K2": fused_refine.K2, "K2 plan": fused_refine.K2_PLAN,
-           "census": dense.CENSUS, "K2 emit": fused_refine.K2_EMIT, "K3": fused_post.K3,
-           "K4": fused_post.K4, "K5": fused_post.K5, "K6": fused_sgm.K6, "K7": fused_sgm.K7,
-           "K8": fused_sgm.K8, "K9": fused_sgm.K9, "K10": fused_sgm.K10, "K11": fused_remap.K11}
 
 # the BA problems: cameras, points, seed, pixel noise, LM and CG iterations,
 # a checkpoint every ``every`` (resumable) and the cost the solve must reach
@@ -165,8 +160,9 @@ def random_pair(h: int, w: int, shift: int, seed: int, integer: bool = False):
 
 class FrameDrill(NamedTuple):
     """A match-type mode: the mesh shape, the inputs, ``call(left, right,
-    mesh)`` returning a ``MatchResult``, and the communication model of the
-    call over the mesh's ``tile`` axis."""
+    mesh, stages)`` returning a ``MatchResult`` (``stages``: the matcher's
+    stage table, which the paths without kernels ignore), and the
+    communication model of the call over the mesh's ``tile`` axis."""
 
     shape: Tuple[int, int]
     pair: Tuple[np.ndarray, np.ndarray]
@@ -178,14 +174,15 @@ def frame_drill(mode: str, size: str) -> FrameDrill:
     """The :class:`FrameDrill` of a match-type mode at ``size``."""
     if mode == "match":
         cfg, pair = MatchConfig(num_disparities=16, window=9, cost="sad"), random_pair(64, 96, 5, 7)
-        return FrameDrill((1, 8), pair, lambda l, r, m: sharded.match_pair_sharded(l, r, cfg, m),
+        return FrameDrill((1, 8), pair,
+                          lambda l, r, m, _: sharded.match_pair_sharded(l, r, cfg, m),
                           comm_model.comm_dense_sharded(cfg, *pair[0].shape, 8))
     if mode == "sgm":
         cfg = MatchConfig(num_disparities=16, window=5, lr_threshold=1.0)
         sc, pair = SGMConfig(directions=8), random_pair(64, 96, 5, 13)
-        return FrameDrill((1, 8), pair,
-                          lambda l, r, m: sgm_sharded.match_pair_sgm_sharded(l, r, cfg, sc, m),
-                          comm_model.comm_sgm_sharded(cfg, *pair[0].shape, 8, sc.directions))
+        return FrameDrill((1, 8), pair, lambda l, r, m, _: (
+            sgm_sharded.match_pair_sgm_sharded(l, r, cfg, sc, m)),
+            comm_model.comm_sgm_sharded(cfg, *pair[0].shape, 8, sc.directions))
     if mode == "sgm-pallas":
         if size == "small":
             cfg, sc, shape, pair = (MatchConfig(num_disparities=16, window=5, lr_threshold=1.0),
@@ -194,8 +191,9 @@ def frame_drill(mode: str, size: str) -> FrameDrill:
             cfg, sc, shape, pair = (MatchConfig(num_disparities=64, window=5, cost="sad",
                                                 lr_threshold=1.0),
                                     SGMConfig(directions=4), (1, 4), make_pair(1088, 1920))
-        return FrameDrill(shape, pair, lambda l, r, m: (
-            sgm_pallas_sharded.match_pair_sgm_pallas_sharded(l, r, cfg, sc, m, exact=True)),
+        return FrameDrill(shape, pair, lambda l, r, m, s: (
+            sgm_pallas_sharded.match_pair_sgm_pallas_sharded(l, r, cfg, sc, m, exact=True,
+                                                             stages=s)),
             comm_model.comm_sgm_sharded(cfg, *pair[0].shape, shape[1], sc.directions,
                                         pallas=True))
     if mode == "hierarchical":
@@ -207,8 +205,8 @@ def frame_drill(mode: str, size: str) -> FrameDrill:
             cfg = MatchConfig(num_disparities=128, window=9, cost="census")
             pyr, tile_rows, shape = PyramidConfig(levels=4, coarsest_disparities=16), 32, (1, 4)
             pair = make_pair(1024, 1920)
-        return FrameDrill(shape, pair, lambda l, r, m: sharded.match_hierarchical_sharded(
-            l, r, cfg, pyr, m, tile_rows=tile_rows, lr_check=True),
+        return FrameDrill(shape, pair, lambda l, r, m, s: sharded.match_hierarchical_sharded(
+            l, r, cfg, pyr, m, tile_rows=tile_rows, lr_check=True, stages=s),
             comm_model.comm_hierarchical_sharded(cfg, pyr, *pair[0].shape, shape[1], tile_rows))
     raise ValueError(f"not a match-type mode: {mode}")
 
@@ -263,10 +261,10 @@ def paired(tag: str, names, fused, plain, seen: dict, err=None):
     """A pipeline stage that runs a kernel's wrapper and its plain version
     on the same inputs (the plain one on copies, as a wrapper may update
     an accumulator in place), raises unless every output is equal (NaN at
-    the same places, every other value in the same bits; masks equal),
-    records each kernel's calls and shapes in ``seen`` (``name: (calls,
-    shapes)``) and ``err(name, 0.0)`` per output, and passes the wrapper's
-    outputs on."""
+    the same places, every other value in the same bits; masks equal;
+    non-tensor outputs equal), records each kernel's calls and shapes in
+    ``seen`` (``name: (calls, shapes)``) and ``err(name, 0.0)`` per output,
+    and passes the wrapper's outputs on."""
     def clone(a):
         return a.clone() if isinstance(a, torch.Tensor) else a
 
@@ -279,8 +277,8 @@ def paired(tag: str, names, fused, plain, seen: dict, err=None):
         for name, w, g in zip(names_out, ws, gs):
             if w is None:
                 continue
-            if not bits_equal(w.to(g.device), g):
-                raise AssertionError(f"{tag}: {name} at {tuple(w.shape)} differs from its "
+            if not (bits_equal(w.to(g.device), g) if isinstance(w, torch.Tensor) else w == g):
+                raise AssertionError(f"{tag}: {name} at {tuple(ws[0].shape)} differs from its "
                                      "plain version")
             if err is not None:
                 err(name, 0.0)
@@ -291,30 +289,14 @@ def paired(tag: str, names, fused, plain, seen: dict, err=None):
     return run
 
 
-def checked_paths(tag: str, seen: dict):
-    """``fused_refine._Path`` and ``fused_sgm._Path`` whose every stage is
-    :func:`paired`."""
-    refine_names = (("K1",), ("SGM",), ("K2", "K2 emit"), ("K4",), ("K5",), ("K3",))
-    # the WTA stage's last output, the validity, is K4's LR check of K9's maps
-    sgm_names = (("K6",), ("K7",), ("K8",), ("K9", "K9", "K9", "K4"), ("K4",), ("K5",), ("K3",),
-                 ("K10",))
-    return (fused_refine._Path(*(paired(tag, n, f, p, seen) for n, f, p in
-                                 zip(refine_names, fused_refine.FUSED, fused_refine.PLAIN))),
-            fused_sgm._Path(*(paired(tag, n, f, p, seen) for n, f, p in
-                              zip(sgm_names, fused_sgm.FUSED, fused_sgm.PLAIN))))
-
-
-def run_checked(tag: str, fn):
-    """``fn()`` with the sharded paths' kernel stages checked against their
-    plain versions (:func:`checked_paths`); returns its output and the
-    checked calls."""
-    seen = {}
-    saved = fused_refine.FUSED, fused_sgm.FUSED
-    fused_refine.FUSED, fused_sgm.FUSED = checked_paths(tag, seen)
-    try:
-        return fn(), seen
-    finally:
-        fused_refine.FUSED, fused_sgm.FUSED = saved
+def checked_stages(tag: str, seen: dict, err=None) -> fused_refine.Stages:
+    """The matcher's stage table with every stage :func:`paired`: the
+    field of ``fused_refine.FUSED`` against the same field of ``PLAIN``,
+    its outputs named by ``fused_refine.STAGE_KERNELS``."""
+    return fused_refine.Stages(**{
+        field: paired(tag, fused_refine.STAGE_KERNELS[field], getattr(fused_refine.FUSED, field),
+                      getattr(fused_refine.PLAIN, field), seen, err)
+        for field in fused_refine.Stages._fields})
 
 
 # ---- the worker -----------------------------------------------------------
@@ -328,12 +310,13 @@ def _sync(dev: torch.device) -> None:
 def _driven(fn, dev):
     """``fn()`` with every launch count and the traffic counter set to 0
     just before; returns its output, the launches and the bytes sent."""
-    for k in KERNELS.values():
+    registry = kernels.registry()
+    for k in registry.values():
         k.launches = 0
     distributed.traffic.reset()
     out = fn()
     _sync(dev)
-    return out, {n: k.launches for n, k in KERNELS.items()}, distributed.traffic.bytes_sent
+    return out, {n: k.launches for n, k in registry.items()}, distributed.traffic.bytes_sent
 
 
 def _turns(two, one, reps: int, dev) -> dict:
@@ -412,8 +395,9 @@ def _match_mode(mode: str, args, dev, rank: int, world: int) -> None:
     one = make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
     pl, pr = (torch.from_numpy(_poison_rows(x, mesh, np.nan)).to(dev) for x in (left, right))
     cl, cr = (torch.from_numpy(x).to(dev) for x in (left, right))
-    res, launches, nbytes = _driven(lambda: call(pl, pr, mesh), dev)
-    _check_one_process(mode, res, lambda: call(cl, cr, one), args.check)
+    fused = fused_refine.FUSED
+    res, launches, nbytes = _driven(lambda: call(pl, pr, mesh, fused), dev)
+    _check_one_process(mode, res, lambda: call(cl, cr, one, fused), args.check)
     numbers = {"shape": list(left.shape), "mesh": list(shape),
                "slots_per_rank": shape[0] * shape[1] // world, "owners": list(mesh.ranks[0]),
                "launches": launches, "bytes_per_frame": nbytes,
@@ -424,7 +408,8 @@ def _match_mode(mode: str, args, dev, rank: int, world: int) -> None:
         if not abs(med - 24.0) <= 0.5:
             raise AssertionError(f"{mode}: median disparity {med} != 24 +- 0.5")
     if args.paired:
-        again, seen = run_checked(mode, lambda: call(pl, pr, mesh))
+        seen = {}
+        again = call(pl, pr, mesh, checked_stages(mode, seen))
         for name, w, g in zip(res._fields, res, again):
             if not bits_equal(w, g):
                 raise AssertionError(f"{mode}: the checked run's {name} differs")
@@ -448,8 +433,8 @@ def _match_mode(mode: str, args, dev, rank: int, world: int) -> None:
                 make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))), args.check)
             out[f"{name}_disparity"] = _fields(got)["disparity"].cpu().numpy()
     if args.reps:
-        numbers.update(_turns(lambda: call(pl, pr, mesh), lambda: call(cl, cr, one),
-                              args.reps, dev))
+        numbers.update(_turns(lambda: call(pl, pr, mesh, fused),
+                              lambda: call(cl, cr, one, fused), args.reps, dev))
     _save(args, mode, rank, out)
     _report(mode, rank, numbers)
 

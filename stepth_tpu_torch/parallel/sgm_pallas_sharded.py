@@ -25,9 +25,9 @@ halo (``g_row0``/``g_h`` mask the rows outside the image), then:
   interior seams.
 
 Then each shard runs K9 (with K4 under ``cfg.lr_threshold``) and K5 on its
-own rows, and K3 over a one-row disparity halo. ``plain=True`` runs every
-kernel's plain version instead. Results land on the mesh's first device (on
-every process, for a mesh that spans processes).
+own rows, and K3 over a one-row disparity halo, the stages of ``stages``
+(``fused_refine.PLAIN``: the plain versions). Results land on the mesh's
+first device (on every process, for a mesh that spans processes).
 """
 
 from __future__ import annotations
@@ -37,9 +37,8 @@ from typing import Optional
 import torch
 
 from stepth_tpu_torch.config import MatchConfig, SGMConfig
-from stepth_tpu_torch.match import dense, fused_dense, fused_sgm
+from stepth_tpu_torch.match import dense, fused_dense, fused_refine, fused_sgm
 from stepth_tpu_torch.match import sgm as sgm_mod
-from stepth_tpu_torch.match.fused_refine import _round_up
 from stepth_tpu_torch.parallel.mesh import Mesh, Row
 from stepth_tpu_torch.parallel.sgm_sharded import relay_carry
 from stepth_tpu_torch.parallel.sharded import (
@@ -48,7 +47,7 @@ from stepth_tpu_torch.parallel.sharded import (
 )
 
 
-def _relay_dir(path, row: Row, vols, accs, *, reverse: bool, shift: int, p1: float,
+def _relay_dir(stages, row: Row, vols, accs, *, reverse: bool, shift: int, p1: float,
                p2: float):
     """One relayed direction: a K10 launch per shard this process owns, in
     owner order, each onto its shard's accumulator, the final carry (f32
@@ -60,35 +59,35 @@ def _relay_dir(path, row: Row, vols, accs, *, reverse: bool, shift: int, p1: flo
             carry = relay_carry(row, carry, prev, i, None if v is None else
                                 (v.shape[0], v.shape[2]), None if v is None else v.device)
         if v is not None:
-            accs[i], carry = path.scan_carry(v, accs[i], carry, p1, p2, reverse=reverse,
-                                             shift=shift)
+            accs[i], carry = stages.scan_carry(v, accs[i], carry, p1, p2, reverse=reverse,
+                                               shift=shift)
         prev = i
 
 
-def _exact_agg(path, row: Row, vols, sgm: SGMConfig, p1: float, p2: float):
+def _exact_agg(stages, row: Row, vols, sgm: SGMConfig, p1: float, p2: float):
     """The direction sum of exact mode, in the unsharded order: the
     horizontals shard-local, every other direction relayed."""
     accs = [None] * len(vols)
     for axis, reverse, shift in fused_sgm.directions(sgm.directions):
         if axis == 2:
-            accs = [None if v is None else path.scan(v, a, p1, p2, axis=2, reverse=reverse,
-                                                     shift=shift)
+            accs = [None if v is None else stages.scan(v, a, p1, p2, axis=2, reverse=reverse,
+                                                       shift=shift)
                     for v, a in zip(vols, accs)]
         else:
-            _relay_dir(path, row, vols, accs, reverse=reverse, shift=shift, p1=p1, p2=p2)
+            _relay_dir(stages, row, vols, accs, reverse=reverse, shift=shift, p1=p1, p2=p2)
     return accs
 
 
-def _wta_epilogue(path, row: Row, aggs, cfg: MatchConfig):
+def _wta_epilogue(stages, row: Row, aggs, cfg: MatchConfig):
     """WTA, uniqueness and LR (K9, K4), the fill (K5) on each shard's rows,
     then the median (K3) over a one-row disparity halo."""
     def wta(agg):
-        disp, _, cbest, valid_f = path.wta(agg, cfg)
+        disp, _, cbest, valid_f = stages.wta(agg, cfg)
         valid = valid_f > 0.5
-        return path.fill(disp, valid), valid, cbest
+        return stages.fill(disp, valid), valid, cbest
 
     disps, valids, cbests = _unzip(_map(wta, aggs), 3)
-    return _median_blocks(path.median, disps, row), valids, cbests
+    return _median_blocks(stages.median, disps, row), valids, cbests
 
 
 def match_pair_sgm_pallas_sharded(
@@ -101,13 +100,12 @@ def match_pair_sgm_pallas_sharded(
     warmup: int = 32,
     halo: Optional[int] = None,
     *,
-    plain: bool = False,
+    stages=fused_refine.FUSED,
 ) -> dense.MatchResult:
     """Row-tile-sharded twin of ``fused_sgm.match_pair_sgm_fused`` over
     ``mesh``'s ``tile`` axis (see the module docstring for the two modes).
     Shard heights must be multiples of 8 and at least ``halo`` (+ the
     rounded ``warmup`` in windowed mode) rows."""
-    path = fused_sgm.PLAIN if plain else fused_sgm.FUSED
     mesh = _mesh(mesh)
     halo = required_halo(cfg) if halo is None else halo
     fused_dense._check_cfg(cfg)
@@ -120,7 +118,7 @@ def match_pair_sgm_pallas_sharded(
     th = h // len(row.devices)
     if th % 8 != 0:
         raise ValueError(f"tile height {th} must be a multiple of 8")
-    wu = 0 if exact else _round_up(int(warmup), 8)
+    wu = 0 if exact else fused_refine._round_up(int(warmup), 8)
     _check_halo(th, halo + wu, "halo+warmup")
     lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
     ext, rows = halo + wu, th + 2 * wu
@@ -130,7 +128,7 @@ def match_pair_sgm_pallas_sharded(
         if lg is None:
             vols.append(None)
             continue
-        vol = path.volume(lg, rg, cfg, dtype, i * th - ext, h)[:, halo:halo + rows]
+        vol = stages.volume(lg, rg, cfg, dtype, i * th - ext, h)[:, halo:halo + rows]
         if wu:
             # K6's global row mask already zeroes out-of-image rows' box
             # sums; re-zero the sliced rows too, so warm-up scans cross true
@@ -140,8 +138,8 @@ def match_pair_sgm_pallas_sharded(
         vols.append(vol.contiguous())
     p1, p2 = sgm_mod.penalties(cfg, sgm)
     if exact:
-        aggs = _exact_agg(path, row, _map(lambda v: v.to(torch.float32), vols), sgm, p1, p2)
+        aggs = _exact_agg(stages, row, _map(lambda v: v.to(torch.float32), vols), sgm, p1, p2)
     else:
-        aggs = _map(lambda v: fused_sgm._aggregate(path.scan, v, sgm, p1, p2)
+        aggs = _map(lambda v: fused_sgm._aggregate(stages, v, sgm, p1, p2)
                     [:, wu:wu + th].contiguous(), vols)
-    return _result(mesh, row, *_wta_epilogue(path, row, aggs, cfg))
+    return _result(mesh, row, *_wta_epilogue(stages, row, aggs, cfg))

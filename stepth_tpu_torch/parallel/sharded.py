@@ -22,8 +22,9 @@ equals the same call on a one-process mesh of the same shape bit for bit:
 the shards compute the same values, and the transport copies them.
 
 The kernel paths (``match_pair_sharded_pallas``, the hierarchical, batched
-and temporal ones) take ``plain=True`` to run every kernel's plain version
-instead, on any device.
+and temporal ones) run the matcher's stage table ``stages``
+(``fused_refine.FUSED`` by default; ``fused_refine.PLAIN`` runs every
+kernel's plain version instead, on any device).
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
-from stepth_tpu_torch.match import dense, fused_dense, fused_refine, pyramid
+from stepth_tpu_torch.match import dense, fused_refine, pyramid
 from stepth_tpu_torch.parallel import distributed
 from stepth_tpu_torch.parallel.mesh import Mesh, Row, make_mesh
 
@@ -273,14 +274,13 @@ def match_batch_sharded(lefts, rights, cfg: MatchConfig = MatchConfig(),
 
 def match_pair_sharded_pallas(left, right, cfg: MatchConfig = MatchConfig(),
                               mesh: Optional[Mesh] = None, halo: Optional[int] = None,
-                              tile_rows: int = 32, *, plain: bool = False
+                              tile_rows: int = 32, *, stages=fused_refine.FUSED
                               ) -> dense.MatchResult:
     """Row-tile sharding of the ``pallas`` backend: each shard runs K1 (+ K4
     with ``cfg.lr_threshold``) on its halo-extended rows, masking costs by
     global rows (``g_row0``/``g_h``), then the occlusion fill and the median
     in torch (``dense.fill_invalid``/``dense.median3``, as the reference).
     Equals ``fused_dense.match_pair_fused``."""
-    raw = fused_dense.raw_match_plain if plain else fused_dense.raw_match
     mesh = _mesh(mesh)
     halo = sublane_halo(cfg, halo)
     row = mesh.row(0)
@@ -290,7 +290,7 @@ def match_pair_sharded_pallas(left, right, cfg: MatchConfig = MatchConfig(),
     _check_halo(th, halo)
 
     def tile(i, lg, rg):
-        disp, _, cbest, valid_f = raw(lg, rg, cfg, tile_rows, i * th - halo, h)
+        disp, _, cbest, valid_f = stages.match(lg, rg, cfg, tile_rows, i * th - halo, h)
         valid = valid_f[halo:halo + th] > 0.5
         return dense.fill_invalid(disp[halo:halo + th], valid), valid, cbest[halo:halo + th]
 
@@ -331,15 +331,15 @@ def _hierarchical_geometry(h: int, ntile: int, cfg: MatchConfig, pyr: PyramidCon
     return tr, halo
 
 
-def _refine_blocks(path, row, lgs, rgs, priors, cfg, radius, max_base, tr, halo, h, lr,
+def _refine_blocks(stages, row, lgs, rgs, priors, cfg, radius, max_base, tr, halo, h, lr,
                    max_windows):
     """One refine level on every shard's halo-extended rows (image and
     prior). Returns the disparity blocks and, with ``lr``, the right view's."""
     th = h // len(lgs)
 
     def tile(i, lg, rg, pr):
-        out = path.refine(lg, rg, pr, cfg, radius, max_base, tr, i * th - halo, h, lr=lr,
-                          max_windows=max_windows)
+        out = fused_refine._refine_level(stages, lg, rg, pr, cfg, radius, max_base, tr,
+                                         i * th - halo, h, lr, max_windows)
         d, dr = out if lr else (out, None)
         return d[halo:halo + th], (dr[halo:halo + th] if lr else None)
 
@@ -349,17 +349,17 @@ def _refine_blocks(path, row, lgs, rgs, priors, cfg, radius, max_base, tr, halo,
     return disps, (disp_rs if lr else None)
 
 
-def _post_blocks(path, row, disps, disp_rs, cfg: MatchConfig, max_base: int, lr_check: bool):
+def _post_blocks(stages, row, disps, disp_rs, cfg: MatchConfig, max_base: int, lr_check: bool):
     """The epilogue on every shard: LR check (``D = max_base``) and
     occlusion fill with ``lr_check``, then the median."""
     if lr_check:
         thr = 1.0 if cfg.lr_threshold is None else float(cfg.lr_threshold)
-        valids = [None if d is None else path.lr(d, dr, thr, max_base)
+        valids = [None if d is None else stages.lr(d, dr, thr, max_base)
                   for d, dr in zip(disps, disp_rs)]
-        disps = [None if d is None else path.fill(d, v) for d, v in zip(disps, valids)]
+        disps = [None if d is None else stages.fill(d, v) for d, v in zip(disps, valids)]
     else:
         valids = _map(lambda d: d >= 0, disps)
-    return _median_blocks(path.median, disps, row), valids
+    return _median_blocks(stages.median, disps, row), valids
 
 
 def _width(blocks: Blocks) -> int:
@@ -367,7 +367,7 @@ def _width(blocks: Blocks) -> int:
     return next((b.shape[1] for b in blocks if b is not None), 0)
 
 
-def _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, sgm,
+def _hierarchical_blocks(stages, row, lgs, rgs, h, cfg, pyr, tr, halo, coarse_backend, sgm,
                          lr_check):
     th = h // len(lgs)
     lefts, rights = [lgs], [rgs]
@@ -391,7 +391,7 @@ def _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo, coarse_back
         ext = zip(_with_halo(lefts[-1], halo, "replicate", row),
                   _with_halo(rights[-1], halo, "replicate", row))
         disps = [None if lg is None else
-                 path.match(lg, rg, coarse_cfg, min(tr, 16), i * th_l - halo, h_l)[0]
+                 stages.match(lg, rg, coarse_cfg, min(tr, 16), i * th_l - halo, h_l)[0]
                  [halo:halo + th_l] for i, (lg, rg) in enumerate(ext)]
     max_base = pyr.coarsest_disparities
     disp_rs = None
@@ -402,10 +402,10 @@ def _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo, coarse_back
         max_base *= 2
         want_lr = lr_check and lvl == 0
         disps, disp_rs = _refine_blocks(
-            path, row, lefts[lvl], rights[lvl], priors, cfg,
+            stages, row, lefts[lvl], rights[lvl], priors, cfg,
             pyr.final_radius if lvl == 0 else pyr.refine_radius, max_base, tr, halo, h_l,
             want_lr, pyr.final_windows if lvl == 0 else pyr.refine_windows)
-    return _post_blocks(path, row, disps, disp_rs, cfg, max_base, lr_check)
+    return _post_blocks(stages, row, disps, disp_rs, cfg, max_base, lr_check)
 
 
 def match_hierarchical_sharded(
@@ -419,7 +419,7 @@ def match_hierarchical_sharded(
     sgm: Optional[SGMConfig] = None,
     lr_check: bool = False,
     *,
-    plain: bool = False,
+    stages=fused_refine.FUSED,
 ) -> dense.MatchResult:
     """The hierarchical matcher sharded over the mesh's ``tile`` axis: every
     pyramid level runs its kernel on the shard's rows extended by an
@@ -436,7 +436,6 @@ def match_hierarchical_sharded(
     coarse level it equals the reference's sharded path, whose coarse level
     is the XLA-style SGM (it may break exact-cost ties differently from the
     fused SGM)."""
-    path = fused_refine.PLAIN if plain else fused_refine.FUSED
     pyr = PyramidConfig() if pyr is None else pyr
     mesh = _mesh(mesh)
     if coarse_backend not in ("wta", "sgm"):
@@ -447,8 +446,8 @@ def match_hierarchical_sharded(
     h = left.shape[0]
     tr, halo = _hierarchical_geometry(h, len(row.devices), cfg, pyr, tile_rows)
     lgs, rgs = _gray_blocks(left, row), _gray_blocks(right, row)
-    return _result(mesh, row, *_hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo,
-                                                    coarse_backend, sgm, lr_check))
+    return _result(mesh, row, *_hierarchical_blocks(stages, row, lgs, rgs, h, cfg, pyr, tr,
+                                                    halo, coarse_backend, sgm, lr_check))
 
 
 def _stack(results) -> dense.MatchResult:
@@ -466,15 +465,13 @@ def match_batch_hierarchical_sharded(
     coarse_backend: str = "wta",
     sgm: Optional[SGMConfig] = None,
     *,
-    plain: bool = False,
+    stages=fused_refine.FUSED,
 ) -> dense.MatchResult:
     """Data-parallel batch of whole frames ``[B, H, W(, C)]``: frame ``k``
     runs the unsharded hierarchical matcher on the first device of data row
     ``k // (B / data)``, in the process owning it; no halos, no relay. Each
     frame equals ``fused_refine.match_hierarchical_fused``. Stacked results
     on the mesh's first device, on every process."""
-    match = (fused_refine.match_hierarchical_plain if plain
-             else fused_refine.match_hierarchical_fused)
     pyr = PyramidConfig() if pyr is None else pyr
     mesh = _mesh(mesh)
     b, nd = lefts.shape[0], mesh.shape["data"]
@@ -485,8 +482,9 @@ def match_batch_hierarchical_sharded(
     for k, slot in enumerate(slots):
         if mesh.is_local(slot):
             dev = mesh.devices[slot[0]][0]
-            res = match(_on(lefts[k], dev), _on(rights[k], dev), cfg, pyr, tile_rows,
-                        lr_check, coarse_backend, sgm=sgm)
+            res = fused_refine._match_hierarchical(stages, _on(lefts[k], dev),
+                                                   _on(rights[k], dev), cfg, pyr, tile_rows,
+                                                   lr_check, coarse_backend, None, sgm)
             if slot != (0, 0) and not mesh.spans_processes:
                 for f in res:  # a frame of another data row, onto the first slot
                     distributed.traffic.move("gather", f.numel() * f.element_size())
@@ -509,7 +507,7 @@ def match_temporal_sharded(
     tile_rows: int = 32,
     lr_check: bool = False,
     *,
-    plain: bool = False,
+    stages=fused_refine.FUSED,
 ) -> dense.MatchResult:
     """Temporally seeded video over the mesh's ``tile`` axis, the sharded
     twin of ``fused_refine.match_temporal_fused``: keyframes (every
@@ -518,7 +516,6 @@ def match_temporal_sharded(
     level-0 refine on each shard, seeded by the previous frame's disparity
     rows with the same l/r/prior halo exchange, then the same epilogue.
     Equal to the unsharded video at the same effective ``tile_rows``."""
-    path = fused_refine.PLAIN if plain else fused_refine.FUSED
     pyr = PyramidConfig() if pyr is None else pyr
     mesh = _mesh(mesh)
     if keyframe_interval < 1:
@@ -533,12 +530,12 @@ def match_temporal_sharded(
     for t in range(lefts.shape[0]):
         lgs, rgs = _gray_blocks(lefts[t], row), _gray_blocks(rights[t], row)
         if t % keyframe_interval == 0:
-            disps, valids = _hierarchical_blocks(path, row, lgs, rgs, h, cfg, pyr, tr, halo,
+            disps, valids = _hierarchical_blocks(stages, row, lgs, rgs, h, cfg, pyr, tr, halo,
                                                  "wta", None, lr_check)
         else:
-            d, dr = _refine_blocks(path, row, lgs, rgs, prev, cfg, pyr.final_radius, max_base,
+            d, dr = _refine_blocks(stages, row, lgs, rgs, prev, cfg, pyr.final_radius, max_base,
                                    tr, halo, h, lr_check, pyr.final_windows)
-            disps, valids = _post_blocks(path, row, d, dr, cfg, max_base, lr_check)
+            disps, valids = _post_blocks(stages, row, d, dr, cfg, max_base, lr_check)
         prev = disps
         frames.append(_result(mesh, row, disps, valids))
     return _stack(frames)

@@ -24,6 +24,7 @@ from stepth_tpu.config import PyramidConfig as RefPyramidConfig
 from stepth_tpu.parallel import comm_model as ref_cm
 from stepth_tpu_torch.config import MatchConfig, PyramidConfig, SGMConfig
 from stepth_tpu_torch.fusion import ba
+from stepth_tpu_torch.match import fused_refine
 from stepth_tpu_torch.parallel import comm_model as cm
 from stepth_tpu_torch.parallel import distributed, sgm_pallas_sharded, sgm_sharded, sharded
 from stepth_tpu_torch.parallel.mesh import make_mesh
@@ -145,17 +146,18 @@ def _cases():
         cases.append((f"sgm-pallas-{tag}", cm.comm_sgm_sharded(
             sgm_cfg, 128, 96, 4, directions, exact, 12, pallas=True),
             lambda sc=sc, exact=exact: sgm_pallas_sharded.match_pair_sgm_pallas_sharded(
-                l128, r128, sgm_cfg, sc, mesh(4), exact=exact, warmup=12, plain=True)))
+                l128, r128, sgm_cfg, sc, mesh(4), exact=exact, warmup=12,
+                stages=fused_refine.PLAIN)))
     for coarse in ("wta", "sgm"):
         cases.append((f"hierarchical-{coarse}", cm.comm_hierarchical_sharded(
             hcfg, pyr, 128, 256, 4, tile_rows=8, coarse_backend=coarse),
             lambda coarse=coarse: sharded.match_hierarchical_sharded(
                 lh, rh, hcfg, pyr, mesh(4), tile_rows=8, coarse_backend=coarse, lr_check=True,
-                plain=True)))
+                stages=fused_refine.PLAIN)))
     cases.append(("batch-hierarchical", cm.comm_batch_hierarchical_sharded(2, 128, 256, 2),
                   lambda: sharded.match_batch_hierarchical_sharded(
                       np.stack([lh, rh]), np.stack([rh, lh]), hcfg, pyr, mesh(1, data=2),
-                      tile_rows=8, lr_check=True, plain=True)))
+                      tile_rows=8, lr_check=True, stages=fused_refine.PLAIN)))
     return cases
 
 

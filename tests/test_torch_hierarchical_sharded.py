@@ -39,35 +39,31 @@ def _pair(h=128, w=256, shift=6):
     return int_pair(h, w, shift)
 
 
-def _with_plans(monkeypatch, fn):
-    """``fn()`` and the refine plans ``(bases, nw, tile_rows)`` it made, in
-    order, by the kernels' path or the plain one."""
+def _with_plans(stages, fn):
+    """``fn`` of the stage table ``stages`` whose plan stage records the
+    refine plans ``(bases, nw, tile_rows)`` it makes, in order; returns its
+    output and the plans."""
     plans = []
 
-    def recorder(plan):
-        def record(*args):
-            plans.append(plan(*args))
-            return plans[-1]
-        return record
+    def record(*args):
+        plans.append(stages.plan(*args))
+        return plans[-1]
 
-    with monkeypatch.context() as m:
-        for name in ("plan_level", "plan_level_plain"):
-            m.setattr(fused_refine, name, recorder(getattr(fused_refine, name)))
-        return fn(), plans
+    return fn(stages._replace(plan=record)), plans
 
 
 @pytest.mark.parametrize("lr_check", [False, True])
 @pytest.mark.parametrize("ntile", [2, 4])
-def test_equals_unsharded_with_equal_plans(monkeypatch, ntile, lr_check):
+def test_equals_unsharded_with_equal_plans(ntile, lr_check):
     """Bit-equal to the unsharded plain path at ``tile_rows=8``, and every
     shard's plan of its own rows (the halo's tiles dropped) equals the
     unsharded plan's rows there, level by level."""
     left, right = _pair()
     cfg, pyr = MatchConfig(**CFG), PyramidConfig(**PYR)
-    want, want_plans = _with_plans(monkeypatch, lambda: fused_refine.match_hierarchical_plain(
-        left, right, cfg, pyr, tile_rows=8, lr_check=lr_check, device="cpu"))
-    got, got_plans = _with_plans(monkeypatch, lambda: sharded.match_hierarchical_sharded(
-        left, right, cfg, pyr, cpu_mesh(ntile), tile_rows=8, lr_check=lr_check))
+    want, want_plans = _with_plans(fused_refine.PLAIN, lambda s: fused_refine._match_hierarchical(
+        s, left, right, cfg, pyr, 8, lr_check, "wta", "cpu"))
+    got, got_plans = _with_plans(fused_refine.FUSED, lambda s: sharded.match_hierarchical_sharded(
+        left, right, cfg, pyr, cpu_mesh(ntile), tile_rows=8, lr_check=lr_check, stages=s))
     assert_equal(want, got)
     if lr_check:
         assert not bool(got.valid.all())

@@ -43,6 +43,7 @@ from stepth_tpu.fusion import geometry as ref_geo
 from stepth_tpu.match import dense as ref_dense
 from stepth_tpu.match import sgm as ref_sgm
 from stepth_tpu_torch.fusion import ba
+from stepth_tpu_torch.match import fused_refine
 from stepth_tpu_torch.parallel import comm_model, drill
 from stepth_tpu_torch.parallel.mesh import make_mesh
 from stepth_tpu_torch.utils import supervisor
@@ -111,7 +112,8 @@ def _one_process(mode):
     the inputs themselves."""
     shape, (left, right), call, _ = drill.frame_drill(mode, "small")
     one = make_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
-    return call(torch.from_numpy(left), torch.from_numpy(right), one), left, right
+    return (call(torch.from_numpy(left), torch.from_numpy(right), one, fused_refine.FUSED),
+            left, right)
 
 
 def _check_bytes(outs, mode, key="bytes_per_frame"):

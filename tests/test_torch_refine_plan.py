@@ -86,16 +86,22 @@ def _pair(device="cpu", h=64, w=256, shift=5):
 @pytest.mark.parametrize("path, other", [("match_hierarchical_plain", "plan_level"),
                                          ("match_hierarchical_fused", "plan_level_plain")])
 def test_each_pipeline_plans_with_its_own_plan(monkeypatch, path, other):
-    """The plain pipeline plans with ``plan_level_plain`` and the kernel
-    pipeline with ``plan_level``, never the other's: on the card the kernel
-    path's plan is then held to an independent one."""
-    def wrong(*_args):
-        raise AssertionError(f"{path} planned with {other}")
+    """The plain pipeline plans with ``plan_level_plain`` (``PLAIN.plan``)
+    and the kernel pipeline with ``plan_level`` (``FUSED.plan``), never the
+    other's: on the card the kernel path's plan is then held to an
+    independent one."""
+    plans = []
+    refine_level = fused_refine._refine_level
 
-    monkeypatch.setattr(fused_refine, other, wrong)
+    def record(stages, *args):
+        plans.append(stages.plan)
+        return refine_level(stages, *args)
+
+    monkeypatch.setattr(fused_refine, "_refine_level", record)
     left, right = _pair()
     res = getattr(fused_refine, path)(left, right, CFG, PYR, lr_check=True, device="cpu")
     assert res.disparity.shape == left.shape
+    assert len(plans) == PYR.levels - 1 and getattr(fused_refine, other) not in plans
 
 
 def test_plain_plan_level_equals_plan_level_on_cpu():

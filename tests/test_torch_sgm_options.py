@@ -18,7 +18,7 @@ from stepth_tpu.config import MatchConfig as RefMatchConfig
 from stepth_tpu.match import pallas_sgm
 from stepth_tpu.match import sgm as ref_sgm
 from stepth_tpu_torch.config import MatchConfig, SGMConfig
-from stepth_tpu_torch.match import fused_sgm
+from stepth_tpu_torch.match import fused_refine, fused_sgm
 
 from tests.test_match_dense import make_pair
 from tests.test_torch_sgm_pipeline import assert_results_equal, int_pair, run_both
@@ -40,7 +40,7 @@ def _spy_path(calls):
         calls.append("scan_wta")
         return fused_sgm.scan_wta_direction(*args, **kw)
 
-    return fused_sgm.FUSED._replace(scan_wta=spy)
+    return fused_refine.FUSED._replace(scan_wta=spy)
 
 
 @pytest.mark.parametrize("D, fused", [(144, False), (128, True)])
