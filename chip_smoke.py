@@ -56,8 +56,11 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       multiple of the tile width, right-view winners one or two tiles
       away, census with 1–3 planes, row shards with ``g_row0`` < 0 and
       ``g_row0 + h > g_h``, one 1080-row case); K7 in all 8 directions at D
-      = 1, 33, 64, 200 and 256, f32 and bf16, ``acc`` None, separate and in
-      place, on ragged shapes down to one row and one column; K8 on
+      = 1, 33, 64, 129, 200 and 256, f32 and bf16, ``acc`` None, separate
+      and in place, on ragged shapes down to one row and one column and on
+      rows of 16-byte multiples (the ring at D > 128), at 1080×1920,
+      D=256, and over rows as wide as one block an SM takes and wider; K8
+      on
       ``K8_EDGES`` (D = 1, 16, 33, 64, 128, f32 and bf16, uniqueness on
       and off, h = 1, 2, 9, w = 1, 17, 300); K10 relayed over shards of 13,
       28 and 29 rows; K11 with 1–4 channels, every width residue mod 4,
@@ -416,6 +419,16 @@ K1_EDGES = (
     (45, 131, 48, 9, "census", 7, None, -3, 40, 40),
     (1080, 515, 129, 9, "census", 9, 0.1, 0, None, 100),
 )
+# K7's (h, w): ragged shapes (the staged kernel: bands and stages cut by
+# the image, one row, one column), then rows of 16-byte multiples, where the
+# scans over rows at D > 128 take the ring (one band, several, h > w, a band
+# wider than the image)
+K7_EDGE_SHAPES = ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40),
+                  (37, 64), (70, 32), (9, 128), (5, 256), (3, 8))
+# K7's at D=256 over rows: as wide as one block an SM takes (2112 = 132
+# bands of 16 on an H100's 132 SMs: the ring) and wider (the staged kernel)
+K7_WIDE_SHAPES = ((1, 2112), (1, 4240), (3, 4240))
+
 # K8's: every D class, f32 and bf16, uniqueness on and off, h and w down to 1
 K8_EDGES = [(D, dtype, uniq, h, w) for D in (1, 16, 33, 64, 128)
             for dtype in (torch.float32, torch.bfloat16) for uniq in (None, 0.1)
@@ -651,9 +664,12 @@ def check_edges(dev, err):
     ``cuda``-marked cases of ``tests/test_torch_fused_dense.py``,
     ``test_torch_fused_sgm.py``, ``test_torch_sgm_relay.py`` and
     ``test_torch_fused_remap.py``, which import JAX and so cannot run on the
-    card): K1 on ``K1_EDGES``; K7 in all 8 directions at D = 1, 33, 64, 200,
-    256, f32 and bf16, ``acc`` None, separate and in place, on ragged shapes
-    (13×21, 5×7, one row, one column, 3×40); K8 on ``K8_EDGES``; K10 relayed
+    card): K1 on ``K1_EDGES``; K7 in all 8 directions at D = 1, 33, 64, 129,
+    200, 256, f32 and bf16, ``acc`` None, separate and in place, on
+    ``K7_EDGE_SHAPES`` (the ring's counted on ``sgm.scan_ring``), at
+    1080×1920, D=256, f32 and bf16, and over rows on ``K7_WIDE_SHAPES`` at
+    D=256 (the ring up to one block an SM, the staged kernel past it); K8
+    on ``K8_EDGES``; K10 relayed
     over shards of 13, 28 and 29 rows against one continuous K7 scan; K11
     with 1–4 channels, widths of every residue mod 4, views with a storage
     offset and maps with NaN, ±inf and far entries. ``err(name,
@@ -662,6 +678,7 @@ def check_edges(dev, err):
     from stepth_tpu_torch.match import fused_dense
     from stepth_tpu_torch.match import fused_sgm
     from stepth_tpu_torch.ops import fused_remap
+    from stepth_tpu_torch.utils import tracing
 
     rng = np.random.default_rng(SEED)
     for h, w, D, win, cost, cw, uniq, g_row0, g_h, shift in K1_EDGES:
@@ -689,36 +706,79 @@ def check_edges(dev, err):
         err("K8", 0.0)
     print(f"  K8: {len(K8_EDGES)} cases bit-equal (D 1-128, f32/bf16, uniqueness on/off, "
           f"h 1/2/9, w 1/17/300)")
-    n = 0
-    for D in (1, 33, 64, 200, 256):
+    n = rings = 0
+    for D in (1, 33, 64, 129, 200, 256):
         for dtype in (torch.float32, torch.bfloat16):
-            for h, w in ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40)):
+            for h, w in K7_EDGE_SHAPES:
                 vol, acc0 = (torch.as_tensor(rng.integers(0, hi, (D, h, w)).astype(np.float32),
                                              device=dev).to(dtype) for hi in (50, 500))
                 for axis, rev, sh in fused_sgm.directions(8):
                     kw = dict(axis=axis, reverse=rev, shift=sh)
+                    dy, dx = fused_sgm._step(axis, rev, sh)
+                    ring = D > 128 and dy != 0 and w * vol.element_size() % 16 == 0
                     for mode in ("none", "separate", "in place"):
                         acc = None if mode == "none" else acc0.clone()
                         want = fused_sgm.scan_direction_plain(
                             vol, None if acc is None else acc.clone(), 25.0, 100.0, **kw)
+                        before = tracing.counters().get("sgm.scan_ring", 0)
                         if mode == "separate":  # out beside acc, which stays as it was
                             got = torch.empty_like(vol)
-                            fused_sgm.K7.launch(dev, vol.data_ptr(), acc.data_ptr(),
-                                                got.data_ptr(), int(dtype == torch.bfloat16),
-                                                D, h, w, *fused_sgm._step(axis, rev, sh),
-                                                25.0, 100.0)
+                            fused_sgm._launch_k7(vol, acc, got, dy, dx, 25.0, 100.0)
                         else:
                             got = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, **kw)
                         torch.cuda.synchronize()
                         ok = torch.equal(got, want) and (
                             mode != "separate" or torch.equal(acc, acc0)) and (
-                            mode != "in place" or got.data_ptr() == acc.data_ptr())
+                            mode != "in place" or got.data_ptr() == acc.data_ptr()) and (
+                            tracing.counters().get("sgm.scan_ring", 0) - before == int(ring))
                         if not ok:
-                            raise AssertionError(f"K7 {h}x{w} D={D} {dtype} {kw} acc {mode}: "
-                                                 f"not bit-equal")
+                            raise AssertionError(f"K7 {h}x{w} D={D} {dtype} {kw} acc {mode} "
+                                                 f"(ring {ring}): not bit-equal or miscounted")
                         err("K7", 0.0)
                         n += 1
-    print(f"  K7: {n} ragged cases bit-equal (D 1-256, f32/bf16, acc none/separate/in place)")
+                        rings += ring
+    print(f"  K7: {n} edge cases bit-equal, {rings} of them on the ring (D 1-256, f32/bf16, "
+          f"acc none/separate/in place)")
+    # the ring at its main shape: 1080x1920, D=256, every direction, onto an
+    # accumulator in place
+    for dtype in (torch.float32, torch.bfloat16):
+        vol, acc0 = (torch.randint(0, hi, (256, 1080, 1920), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(SEED + hi))
+                     .to(dtype) for hi in (60, 600))
+        for axis, rev, sh in fused_sgm.directions(8):
+            kw = dict(axis=axis, reverse=rev, shift=sh)
+            want = fused_sgm.scan_direction_plain(vol, acc0.clone(), 8.0, 96.0, **kw)
+            got = fused_sgm.scan_direction(vol, acc0.clone(), 8.0, 96.0, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"K7 1080x1920 D=256 {dtype} {kw}: not bit-equal")
+            err("K7", 0.0)
+            del want, got
+        del vol, acc0
+    print("  K7: 1080x1920 D=256, all 8 directions, f32 and bf16, bit-equal")
+    # rows as wide as one block an SM takes, and wider: the ring, then the
+    # staged kernel
+    sms, counts = fused_sgm._sm_count(dev), {"ring": 0, "staged": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, w in K7_WIDE_SHAPES:
+            vol, acc0 = (torch.as_tensor(rng.integers(0, hi, (256, h, w)).astype(np.float32),
+                                         device=dev).to(dtype) for hi in (50, 500))
+            for axis, rev, sh in fused_sgm.directions(8)[2:]:  # the six over rows
+                dy, dx = fused_sgm._step(axis, rev, sh)
+                ring = len(fused_sgm.ring_schedule(h, w, dy, dx)[0]) - 1 <= sms
+                kw = dict(axis=axis, reverse=rev, shift=sh)
+                want = fused_sgm.scan_direction_plain(vol, acc0.clone(), 25.0, 100.0, **kw)
+                before = tracing.counters().get("sgm.scan_ring", 0)
+                got = fused_sgm.scan_direction(vol, acc0.clone(), 25.0, 100.0, **kw)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and
+                        tracing.counters().get("sgm.scan_ring", 0) - before == int(ring)):
+                    raise AssertionError(f"K7 {h}x{w} D=256 {dtype} {kw} (ring {ring}): "
+                                         f"not bit-equal or miscounted")
+                err("K7", 0.0)
+                counts["ring" if ring else "staged"] += 1
+    print(f"  K7: wide rows {K7_WIDE_SHAPES} at D=256, f32 and bf16, bit-equal: "
+          f"{counts['ring']} on the ring, {counts['staged']} on the staged kernel")
     h, w, n = 70, 300, 0
     for D in (24, 144):
         for dtype in (torch.float32, torch.bfloat16):

@@ -8,7 +8,9 @@ turns, on one NVIDIA GPU.
 ``DIR`` holds an earlier ``stepth_tpu_torch/csrc`` (for example unpacked by
 ``git archive <commit> stepth_tpu_torch/csrc`` into an ignored directory):
 its sources are built with the same ``nvcc`` flags into a library of their
-own beside the current one. Both versions run on the same inputs:
+own beside the current one, and each of its C functions is called with
+as many arguments as its prototype there declares (an older version may
+lack trailing arguments). Both versions run on the same inputs:
 
 - K1 (SAD, window 9) at the ``flagship()`` shape, 1080×1920 with D=128, on
   ``chip_smoke.make_pair``; at the 135×240 coarse level with D=16, SAD and
@@ -30,7 +32,10 @@ own beside the current one. Both versions run on the same inputs:
   volume and 3-direction sum that path 3 (``sgm-pallas``, 4 directions,
   window 5) and its coarse level give it, each with its buffer fill;
 - K7 in each of the 8 directions at 1080×1920, D=64, f32, onto an
-  accumulator, and three K7 launches of the 135×240 D=16 coarse level;
+  accumulator, then at D=256 in place, at 1080×1920 and 1920×1080 (each
+  version as its wrapper would launch it: the ring where the new
+  ``takes_ring`` says so), and three K7 launches of the 135×240 D=16
+  coarse level;
 - K10 on one 360×1920 shard, D=64, seeded from a carry;
 - K11 on a 1080×1920×3 view through the 1080p rig map of ``chip_smoke.py``,
   and ``grid_sample`` on the same view as a yardstick;
@@ -62,6 +67,7 @@ import argparse
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -89,11 +95,31 @@ def build_old(csrc: pathlib.Path, out_dir: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib))
 
 
-def bind(lib: ctypes.CDLL, k):
-    """``k``'s C function in ``lib``, as ``Kernel.launch`` binds it."""
+def c_arity(csrc: pathlib.Path, symbol: str) -> int:
+    """How many arguments, the stream included, ``symbol``'s prototype in
+    the sources under ``csrc`` declares."""
+    for src in sorted(csrc.glob("*.cu")):
+        m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src.read_text())
+        if m:
+            return m.group(1).count(",") + 1
+    raise ValueError(f"{symbol} is not in {csrc}")
+
+
+def c_function(lib: ctypes.CDLL, k, arity: int):
+    """``k``'s C function in ``lib``, taking ``arity`` arguments, the stream
+    last: called as ``Kernel.launch`` calls it, with the arguments past its
+    first ``arity - 1`` left out."""
     fn = getattr(lib, k.symbol)
-    fn.argtypes = k.argtypes + [ctypes.c_void_p]
+    keep = arity - 1
+    fn.argtypes = k.argtypes[:keep] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return lambda *a: fn(*a[:keep], a[-1])
+
+
+def bind(lib: ctypes.CDLL, k, arity: int):
+    """:func:`c_function`, launched on the current stream; raises on a
+    failed launch."""
+    fn = c_function(lib, k, arity)
 
     def call(*args):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)
@@ -187,13 +213,18 @@ def main() -> int:
     print(card)
     kernels.load()
     old = build_old(args.old_csrc, kernels.BUILD_ROOT / "old")
+
+    def bound(lib, k):
+        """``k`` in ``lib`` (``old`` or the current one), with the arguments its
+        prototype there declares."""
+        return bind(lib, k, c_arity(args.old_csrc, k.symbol) if lib is old
+                    else len(k.argtypes) + 1)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     result = {"card": card, "launches_per_timing": LAUNCHES, "rounds": ROUNDS}
 
     def versions(k, *args):
-        new_fn = bind(kernels.load(), k)
-        old_fn = bind(old, k)
+        new_fn, old_fn = bound(kernels.load(), k), bound(old, k)
         return {"old": lambda: old_fn(*args), "new": lambda: new_fn(*args)}
 
     def same(k, outs, *args):
@@ -229,7 +260,7 @@ def main() -> int:
         tail = (h, w, D, 9, 0, 0, 1.0, g_row0, h if g_h is None else g_h)
         fns, outs = {}, {}
         for v, lib in (("old", old), ("new", kernels.load())):
-            fn = bind(lib, fused_dense.K1)
+            fn = bound(lib, fused_dense.K1)
             o = [torch.full_like(lg, float("nan")) for _ in range(3)]
             right = torch.empty((h, w), dtype=torch.int64, device=dev)
 
@@ -291,7 +322,7 @@ def main() -> int:
     def k2_fns(levels):
         fns = {}
         for v, lib in (("old", old), ("new", kernels.load())):
-            fn = bind(lib, fused_refine.K2)
+            fn = bound(lib, fused_refine.K2)
 
             def run(fn=fn):
                 for _, args, outs, lr, _, _ in levels:
@@ -329,7 +360,7 @@ def main() -> int:
                 *(o.data_ptr() for o in outs), right.data_ptr(), d, h, w, p1, p2, 0, 1.0)
         fns = {}
         for v, lib in (("old", old), ("new", kernels.load())):
-            fn = bind(lib, fused_sgm.K8)
+            fn = bound(lib, fused_sgm.K8)
 
             def run(fn=fn):
                 right.fill_(-1)
@@ -365,7 +396,8 @@ def main() -> int:
     k7 = {}
     for axis, rev, sh in fused_sgm.directions(8):
         dy, dx = fused_sgm._step(axis, rev, sh)
-        a = (vol.data_ptr(), acc.data_ptr(), out.data_ptr(), 0, D, H, W, dy, dx, 8.0, 96.0)
+        a = (vol.data_ptr(), acc.data_ptr(), out.data_ptr(), 0, D, H, W, dy, dx, 8.0, 96.0,
+             None, 0, None)
         same(fused_sgm.K7, [out], *a)
         k7[arrows[(axis, rev, sh)]] = turns(versions(fused_sgm.K7, *a))
         print(f"K7 {arrows[(axis, rev, sh)]} {H}x{W} D={D}: {k7[arrows[(axis, rev, sh)]]}")
@@ -374,6 +406,42 @@ def main() -> int:
     result["K7 per launch over →x ←x ↓y"] = {
         v: sum(t[v] for t in three) / 3 for v in ("old", "new")}
 
+    # K7 at D=256, the census SGM cell's scans, and the same image upright:
+    # the new version takes the ring where its wrapper would (the old one
+    # ignores the schedule); outputs compared beside the accumulator, times
+    # taken in place, as the pipeline runs them
+    del vol, acc, out
+    D2 = 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for H2, W2 in ((H, W), (W, H)):
+        vol2 = torch.randint(0, 60, (D2, H2, W2), generator=gen, device=dev).float()
+        acc2 = torch.randint(0, 600, (D2, H2, W2), generator=gen, device=dev).float()
+        out2 = torch.empty_like(vol2)
+        k7w = {}
+        for axis, rev, sh in fused_sgm.directions(8):
+            dy, dx = fused_sgm._step(axis, rev, sh)
+            ring = fused_sgm.takes_ring(D2, H2, W2, dy, dx, vol2.dtype, sms, vol2.data_ptr(),
+                                        acc2.data_ptr(), out2.data_ptr())
+            sched, blocks, bands = (fused_sgm._ring_schedule_on(dev, H2, W2, dy, dx) if ring
+                                    else (None, 0, 0))
+            prog = torch.empty(bands, dtype=torch.int32, device=dev) if ring else None
+            tail = (dy, dx, 8.0, 96.0, None if sched is None else sched.data_ptr(), blocks,
+                    None if prog is None else prog.data_ptr())
+            same(fused_sgm.K7, [out2], vol2.data_ptr(), acc2.data_ptr(), out2.data_ptr(), 0,
+                 D2, H2, W2, *tail)
+            a_ = arrows[(axis, rev, sh)]
+            k7w[a_] = dict(turns(versions(fused_sgm.K7, vol2.data_ptr(), acc2.data_ptr(),
+                                          acc2.data_ptr(), 0, D2, H2, W2, *tail)), ring=ring)
+            print(f"K7 {a_} {H2}x{W2} D={D2}: {k7w[a_]}")
+        result[f"K7 {H2}x{W2} D={D2} f32 in place, ms per direction"] = k7w
+        for name, arrows_ in (("diagonals", ("↘", "↙", "↗", "↖")), ("↓y ↑y", ("↓y", "↑y")),
+                              ("→x ←x", ("→x", "←x"))):
+            result[f"K7 {H2}x{W2} D={D2} {name}, ms summed"] = {
+                v: sum(k7w[a][v] for a in arrows_) for v in ("old", "new")}
+        del vol2, acc2, out2
+    vol = torch.randint(0, 60, (D, H, W), generator=gen, device=dev).float()
+    acc = torch.randint(0, 600, (D, H, W), generator=gen, device=dev).float()
+
     hc, wc, dc = 135, 240, 16
     vc = torch.randint(0, 60, (dc, hc, wc), generator=gen, device=dev).float()
     ac = torch.randint(0, 600, (dc, hc, wc), generator=gen, device=dev).float()
@@ -381,7 +449,7 @@ def main() -> int:
     coarse = {}
     for v in ("old", "new"):
         fns = [versions(fused_sgm.K7, vc.data_ptr(), ac.data_ptr(), oc.data_ptr(), 0, dc, hc,
-                        wc, *fused_sgm._step(axis, rev, sh), 8.0, 96.0)[v]
+                        wc, *fused_sgm._step(axis, rev, sh), 8.0, 96.0, None, 0, None)[v]
                for axis, rev, sh in fused_sgm.directions(4)[:3]]
         coarse[v] = lambda fns=fns: [f() for f in fns]
     result["K7 x3 coarse 135x240 D=16 f32, ms"] = turns(coarse)
@@ -473,7 +541,7 @@ def main() -> int:
     nan_rule = {"plain NaN pixels": int(torch.isnan(want).sum())}
     for v, lib in (("old", old), ("new", kernels.load())):
         out = torch.full_like(x_, 7.0)
-        bind(lib, fused_post.K3)(x_.data_ptr(), out.data_ptr(), H, W)
+        bound(lib, fused_post.K3)(x_.data_ptr(), out.data_ptr(), H, W)
         torch.cuda.synchronize()
         nan_rule[f"{v} NaN pixels"] = int(torch.isnan(out).sum())
         nan_rule[f"{v} equal to plain (NaN as NaN)"] = chip_smoke.bits_equal(want, out)
@@ -494,10 +562,7 @@ def main() -> int:
         for k in every:
             k._fn = None
             if lib is not None:
-                fn = getattr(lib, k.symbol)
-                fn.argtypes = k.argtypes + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                k._fn = fn
+                k._fn = c_function(lib, k, c_arity(args.old_csrc, k.symbol))
 
     left_t, right_t = (torch.as_tensor(a, device=dev) for a in (left, right_img))
     path3 = StereoModel(backend="sgm-pallas", match=MatchConfig(

@@ -46,6 +46,21 @@
 // read, out written) at full resolution; the serial chain (H or W dependent
 // steps of ~a dozen shuffles each) at the 135x240 coarse level.
 //
+// At D > 128 the staged tile falls to 2 steps a stage and one block an SM,
+// so K7's scans over rows (dy = +-1: the diagonals, down and up) take a
+// ring there instead, where the wrapper sees a pitch TMA can address
+// (w·sizeof(T) and the pointers 16-byte multiples) and a schedule of no
+// more blocks than the card has SMs: persistent blocks, a bulk tensor copy
+// (TMA) per step and tensor into per-step slots, scan warps, write warps
+// and a copy thread joined by per-slot mbarriers, no block-wide barrier
+// (the section "K7 at D > 128" below). What bounds it on an H100 at 1080p,
+// D=256: the write-back, not the copies or the recurrence, and most for
+// the diagonals, whose unaligned runs share sectors with their neighbours.
+// Upright images gain too (1920x1080: diagonals 8.1 -> 7.1 ms, 69
+// blocks). The staged kernel still runs the scans along rows (dy = 0),
+// every scan at D <= 128 (KITTI, the coarse levels), unaligned pitches,
+// rows wider than 132 bands on an H100 (2112 columns), and K10.
+//
 // K10 is K7's kernel with CARRY set; K7's instantiation compiles without the
 // carry code. The scanned axis is rows (dy = +-1). A chain that starts on the
 // shard's entry row (row 0 for dy > 0, h - 1 for dy < 0) at column x takes
@@ -76,8 +91,11 @@
 // serial step: taking the WTA off it (shuffle reductions a step, a division
 // on the winner's lane) was the largest gain among the variants timed.
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
+
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes through the runtime)
 
 #include "common.cuh"
 
@@ -434,15 +452,21 @@ struct ScanGeo {
   int h, w, dy, dx, sl, c0, r_lo, r_hi, n;
 
   __device__ __forceinline__ void init(int h_, int w_, int dy_, int dx_, int nch) {
-    h = h_; w = w_; dy = dy_; dx = dx_;
-    sl = dx * dy;
-    if (dy == 0) {
+    if (dy_ == 0) {
+      h = h_; w = w_; dy = dy_; dx = dx_;
+      sl = 0;
       c0 = blockIdx.x * nch;
       r_lo = 0; r_hi = 0;
       n = w;
       return;
     }
-    c0 = (sl > 0 ? -(h - 1) : 0) + (int)blockIdx.x * nch;
+    band(h_, w_, dy_, dx_, (dx_ * dy_ > 0 ? -(h_ - 1) : 0) + (int)blockIdx.x * nch, nch);
+  }
+  // dy = +-1: the band of nch chains whose first intercept is c0_
+  __device__ __forceinline__ void band(int h_, int w_, int dy_, int dx_, int c0_, int nch) {
+    h = h_; w = w_; dy = dy_; dx = dx_;
+    sl = dx * dy;
+    c0 = c0_;
     if (sl == 0) {
       r_lo = 0; r_hi = h - 1;
     } else if (sl > 0) {  // x = c + r
@@ -618,6 +642,410 @@ __global__ void __launch_bounds__(G::NT) sgm_scan_kernel(
     }
   }
 }
+
+// ---- K7 at D > 128, dy = +-1: a ring of step slots fed by TMA ------------
+//
+// A persistent block owns whole bands of R neighbouring chains (the bands
+// the wrapper's schedule gives it) and streams their steps, band after band,
+// through a ring of slots, each holding one step of one band: the [D] runs
+// of vol (and of acc) at the step's row, one bulk tensor copy (TMA) each. A
+// copy's box must start on a 16-byte boundary (an unaligned start is an
+// illegal instruction on an H100), and a diagonal band's run starts on any
+// column, so the box is [BW = R + EPC columns x 1 row x D] from the 16-byte
+// boundary at or left of the run (EPC elements a 16-byte chunk); TMA
+// zero-fills what lies outside the image. Its rows of BW·sizeof(T) bytes are
+// an odd number of 16-byte chunks (80 bytes of f32, 48 of bf16), so the 8
+// lanes that read one chunk of 8 neighbouring d's hit distinct banks. Three
+// roles, joined by per-slot mbarriers only (no barrier spans the block):
+// - scan warps (R / 4): each keeps 4 neighbouring chains, reads them per d
+//   from the one or two 4-element groups they fall in, runs scan_step on
+//   each chain in the image and leaves acc + L in place of its inputs, then
+//   a proxy fence, so that these generic stores come before the bulk copy
+//   that later refills the slot ("full" -> "done");
+// - write warps: copy each finished step's run from the slot to `out`, a
+//   16-byte chunk a lane where the chunk lies wholly in the run and the
+//   image, element by element at the run's two ends ("done" -> "free");
+// - lane 0 of the last warp: keeps the ring full, step i + NS into the slot
+//   of step i once it is free ("free" -> "full").
+// The stores set the pace on an H100, and a diagonal band's far more than a
+// vertical one's: its run shares a 32-byte sector with each neighbour's at
+// both ends, and a sector written in halves costs memory twice unless the
+// L2 merges the halves first. So the schedule keeps the bands in step with
+// one wavefront down the rows, and a diagonal band writes a row only once
+// its running neighbours have written all but kRingLead rows before it
+// (each band's progress in a word of the launch's own `prog`, which the
+// launcher sets to kRingIdle first). The wrapper takes the ring only where
+// the schedule needs no more blocks than the card has SMs, so all of them
+// run at once with every slot the shared memory holds.
+template <typename T, int R_>
+struct RingTile {
+  static constexpr int R = R_;                        // chains of a band
+  static constexpr int EPC = 16 / (int)sizeof(T);     // elements a 16-byte chunk
+  static constexpr int BW = R + EPC;                  // box columns
+  static constexpr int PB = BW * (int)sizeof(T);      // bytes of one d of a step
+  static constexpr int NQ = BW / EPC;                 // 16-byte chunks of it
+  static constexpr int CW = 4;                        // chains a scan warp keeps
+  static constexpr int NCW = R / CW;                  // scan warps
+  static constexpr int NW = 2;                        // write warps
+  static constexpr int NT = 32 * (NCW + NW + 1);      // + the copy warp
+  static_assert(R % EPC == 0 && NQ % 2 == 1, "odd chunks a row: conflict-free groups");
+};
+constexpr int kRingBand = 16;      // chains a band (the wrapper's RING_BAND; 32 timed slower)
+constexpr int kRingMaxStages = 8;  // slots a block keeps at most
+constexpr int kRingLead = 1;       // rows a diagonal band may run ahead of a neighbour
+constexpr int kRingPacePolls = 2048;  // then it writes anyway (~0.3 ms)
+constexpr int kRingIdle = 0x7f7f7f7f;  // a band's progress while it does not run (bytes 0x7f)
+
+// The bytes of one slot region ([D][BW] of one tensor), a multiple of the
+// 128 bytes a bulk copy's destination is aligned to.
+__host__ __device__ constexpr uint32_t ring_region(int D, int pb) {
+  return ((uint32_t)D * pb + 127u) & ~127u;
+}
+
+// The 4-element groups g and g + 1 of row d of a region, as f32.
+__device__ __forceinline__ void load_groups(const float* row, int g, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(row + 4 * g);
+  const float4 b = *reinterpret_cast<const float4*>(row + 4 * g + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u & 0xffffu)));
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __bfloat162float(__ushort_as_bfloat16((unsigned short)(u >> 16)));
+}
+__device__ __forceinline__ void load_groups(const __nv_bfloat16* row, int g, float (&v)[8]) {
+  const uint2 a = *reinterpret_cast<const uint2*>(row + 4 * g);
+  const uint2 b = *reinterpret_cast<const uint2*>(row + 4 * g + 4);
+  v[0] = bf16_lo(a.x); v[1] = bf16_hi(a.x); v[2] = bf16_lo(a.y); v[3] = bf16_hi(a.y);
+  v[4] = bf16_lo(b.x); v[5] = bf16_hi(b.x); v[6] = bf16_lo(b.y); v[7] = bf16_hi(b.y);
+}
+// v[sub .. sub + 3] into o (sub is warp-uniform; selects keep the code
+// short, which times better than a branch per sub)
+__device__ __forceinline__ void pick4(const float (&v)[8], int sub, float (&o)[4]) {
+#pragma unroll
+  for (int ci = 0; ci < 4; ++ci) {
+    o[ci] = sub == 0 ? v[ci] : sub == 1 ? v[ci + 1] : sub == 2 ? v[ci + 2] : v[ci + 3];
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+// Wait for the phase of parity `parity` to complete. A barrier that never
+// completes (a fault of the pipeline) traps after ~10^7 polls, so the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t ok;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(ok)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (ok) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+// The box at (x, y, 0) of the map into shared memory at dst; x must be a
+// multiple of 16 bytes (negative: zero-filled columns)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(0), "r"(bar)
+      : "memory");
+}
+// The steps of a block's bands, in order: band bands[bi] (its first
+// intercept), step t of it.
+struct RingSteps {
+  const int* bands;
+  int bi, last, t, nch;
+  ScanGeo g;
+
+  __device__ __forceinline__ RingSteps(const int* b, int first, int last_, int h, int w, int dy,
+                                       int dx, int nch_)
+      : bands(b), bi(first), last(last_), t(0), nch(nch_) {
+    g.h = h; g.w = w; g.dy = dy; g.dx = dx;
+    enter();
+  }
+  __device__ __forceinline__ void enter() {  // the band at bi, skipping empty ones
+    for (; bi < last; ++bi) {
+      g.band(g.h, g.w, g.dy, g.dx, bands[bi], nch);
+      if (g.n > 0) return;
+    }
+  }
+  __device__ __forceinline__ bool valid() const { return bi < last; }
+  __device__ __forceinline__ void next() {
+    if (++t < g.n) return;
+    t = 0;
+    ++bi;
+    enter();
+  }
+  __device__ __forceinline__ int row() const { return g.row_of_step(t); }
+  __device__ __forceinline__ int x() const { return g.c0 + g.sl * row(); }  // column of chain 0
+};
+
+// sched: [nblocks + 1] offsets, then the bands' first intercepts; block b
+// runs bands [sched[b], sched[b + 1]). prog: each band's progress, by band
+// index, kRingIdle where the band is not running. has_acc == 0: out = L.
+template <typename T, int ND, class G>
+__global__ void __launch_bounds__(G::NT) sgm_scan_ring_kernel(
+    __grid_constant__ const CUtensorMap map_vol, __grid_constant__ const CUtensorMap map_acc,
+    T* __restrict__ out, const int* sched, int* prog, int nblocks, int has_acc, int ns, int D,
+    int h, int w, int dy, int dx, float p1, float p2) {
+  extern __shared__ __align__(128) uint8_t ring_smem[];
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(ring_smem);
+  const uint32_t pad = ((s0 + 127u) & ~127u) - s0;
+  uint8_t* ring = ring_smem + pad;
+  const uint32_t ring_s = s0 + pad;
+  const uint32_t region = ring_region(D, G::PB);
+  const uint32_t slot = region * (has_acc ? 2u : 1u);
+  const uint32_t out_off = has_acc ? region : 0u;  // the region the outputs replace
+  // per slot: "full" (copy -> scan), "done" (scan -> write), "free" (write -> copy)
+  const uint32_t full = ring_s + (uint32_t)ns * slot, done = full + 8u * ns, free_ = done + 8u * ns;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8u * s, 1);
+      mbar_init(done + 8u * s, G::NCW);
+      mbar_init(free_ + 8u * s, G::NW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int first = sched[blockIdx.x], last = sched[blockIdx.x + 1];
+  const int* bands = sched + nblocks + 1;
+  RingSteps it(bands, first, last, h, w, dy, dx, G::R);
+
+  if (warp == G::NCW + G::NW) {  // the copy warp
+    if (lane != 0) return;
+    const uint32_t bytes = (uint32_t)D * G::PB * (has_acc ? 2u : 1u);
+    for (int i = 0; it.valid(); ++i, it.next()) {
+      const uint32_t s = (uint32_t)(i % ns), dst = ring_s + s * slot;
+      if (i >= ns) mbar_wait(free_ + 8u * s, (uint32_t)(i / ns - 1) & 1u);
+      const int xa = it.x() & -G::EPC;  // the 16-byte boundary at or left of the run
+      mbar_expect_tx(full + 8u * s, bytes);
+      tma_load(dst, &map_vol, xa, it.row(), full + 8u * s);
+      if (has_acc) tma_load(dst + region, &map_acc, xa, it.row(), full + 8u * s);
+    }
+    return;
+  }
+
+  if (warp >= G::NCW) {  // a write warp: 16-byte chunks (d, q), q fastest
+    const long plane = (long)h * w;
+    // a diagonal band's run shares a 32-byte sector with each neighbour's at
+    // both ends: write a row only once the started neighbours have written
+    // all but the last kRingLead rows before it, so that the L2 merges the
+    // sector's two halves before it goes to memory
+    const bool pace = dx != 0;
+    const int c_lo = dx * dy > 0 ? -(h - 1) : 0;  // the first band's intercept
+    for (int i = 0; it.valid(); ++i, it.next()) {
+      const uint32_t s = (uint32_t)(i % ns);
+      mbar_wait(done + 8u * s, (uint32_t)(i / ns) & 1u);
+      const int x = it.x(), xa = x & -G::EPC;
+      const int b = (it.g.c0 - c_lo) / G::R, now = dy > 0 ? it.row() : h - 1 - it.row();
+      if (pace && lane == 0) {
+        for (int nb = b - 1; nb <= b + 1; nb += 2) {
+          if (nb < 0 || nb >= sched[nblocks]) continue;
+          const volatile int* pn = prog + nb;
+          for (int polls = 0; *pn < now - kRingLead && polls < kRingPacePolls; ++polls) {
+            __nanosleep(128);
+          }
+        }
+      }
+      __syncwarp();
+      const int lo = max(x, 0), hi = min(x + G::R, w);  // the run's columns in the image
+      const uint8_t* src = ring + s * slot + out_off;
+      T* dst = out + (long)it.row() * w + xa;
+#pragma unroll 2
+      for (int k = (warp - G::NCW) * 32 + lane; k < D * G::NQ; k += G::NW * 32) {
+        const int d = k / G::NQ, q = k - d * G::NQ;
+        const int c0 = xa + q * G::EPC;  // the chunk's first column
+        if (c0 + G::EPC <= lo || c0 >= hi) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(src + d * G::PB + 16 * q);
+        T* p = dst + d * plane + q * G::EPC;
+        if (c0 >= lo && c0 + G::EPC <= hi) {
+          *reinterpret_cast<uint4*>(p) = v;
+        } else {
+          const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+          for (int j = 0; j < G::EPC; ++j) {
+            if (c0 + j >= lo && c0 + j < hi) p[j] = e[j];
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(free_ + 8u * s);
+      if (pace) {
+        asm volatile("bar.sync 1, %0;\n" ::"n"(32 * G::NW) : "memory");  // the write warps
+        if (warp == G::NCW && lane == 0) {
+          *(volatile int*)(prog + b) = it.t + 1 == it.g.n ? kRingIdle : now + 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a scan warp: chains CW·warp .. CW·warp + CW - 1 of each band
+  const int e0 = G::CW * warp;
+  float prev[G::CW][ND], c[G::CW][ND], a[G::CW][ND], L[ND];
+#pragma unroll
+  for (int ci = 0; ci < G::CW; ++ci) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      c[ci][j] = 0.f;
+      a[ci][j] = 0.f;
+    }
+  }
+  for (int i = 0; it.valid(); ++i, it.next()) {
+    if (it.t == 0) {  // a band starts from zeros where its chains enter
+#pragma unroll
+      for (int ci = 0; ci < G::CW; ++ci) {
+#pragma unroll
+        for (int j = 0; j < ND; ++j) prev[ci][j] = lane + 32 * j < D ? 0.f : kBig;
+      }
+    }
+    const uint32_t s = (uint32_t)(i % ns);
+    mbar_wait(full + 8u * s, (uint32_t)(i / ns) & 1u);
+    const int x = it.x();
+    const int xs = x + e0;  // column of this warp's first chain
+    if (xs + G::CW > 0 && xs < w) {
+      const int col = x - (x & -G::EPC) + e0;  // its column in the box
+      const T* tv = reinterpret_cast<const T*>(ring + s * slot);
+      const T* ta = reinterpret_cast<const T*>(ring + s * slot + region);
+      const int g = col >> 2, sub = col & 3;  // its 4-element group, its place there
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) {
+          float v[8], o[4];
+          load_groups(tv + d * G::BW, g, v);
+          pick4(v, sub, o);
+#pragma unroll
+          for (int ci = 0; ci < G::CW; ++ci) c[ci][j] = o[ci];
+          if (has_acc) {
+            load_groups(ta + d * G::BW, g, v);
+            pick4(v, sub, o);
+#pragma unroll
+            for (int ci = 0; ci < G::CW; ++ci) a[ci][j] = o[ci];
+          }
+        }
+      }
+      T* to = reinterpret_cast<T*>(ring + s * slot + out_off);
+#pragma unroll
+      for (int ci = 0; ci < G::CW; ++ci) {
+        if (xs + ci < 0 || xs + ci >= w) continue;  // this chain is outside the image here
+        scan_step<ND>(prev[ci], c[ci], L, lane, p1, p2);
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          const int d = lane + 32 * j;
+          prev[ci][j] = d < D ? L[j] : kBig;
+          if (d < D) to[d * G::BW + col + ci] = from_f32<T>(has_acc ? a[ci][j] + L[j] : L[j]);
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // stores before the next copy
+    __syncwarp();
+    if (lane == 0) mbar_arrive(done + 8u * s);
+  }
+}
+
+// TMA's tensor-map encoder (cuTensorMapEncodeTiled), looked up through the
+// runtime's entry-point query, so the library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The map of a [D, h, w] volume at p whose box is [BW x 1 x D].
+template <typename T, class G>
+int ring_map(CUtensorMap* map, const void* p, int D, int h, int w) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)D};
+  const cuuint64_t strides[2] = {(cuuint64_t)w * sizeof(T), (cuuint64_t)h * w * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)G::BW, 1u, (cuuint32_t)D};
+  const cuuint32_t one[3] = {1u, 1u, 1u};
+  const CUresult r = enc(map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         3, const_cast<void*>(p), dims, strides, box, one,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Bytes of a block's shared memory past its slots: the alignment and the
+// barriers.
+constexpr size_t kRingExtra = 128 + 3 * 8 * kRingMaxStages;
+
+// As many slots as one block's shared memory holds (a block an SM): at
+// least 2 at any D <= 256.
+constexpr int ring_stages(uint32_t slot) {
+  return (int)std::min<size_t>(kRingMaxStages, (kMaxSmem - kRingExtra) / slot);
+}
+static_assert(ring_stages(2 * ring_region(256, RingTile<float, kRingBand>::PB)) >= 2,
+              "two slots of vol and acc at D = 256");
+
+template <typename T, int ND>
+struct RingLaunch {
+  static int run(const void* vol, const void* acc, void* out, const int* sched, int* prog,
+                 int nblocks, int D, int h, int w, int dy, int dx, float p1, float p2,
+                 void* stream) {
+    if constexpr (ND <= 4) {
+      return (int)cudaErrorInvalidValue;  // D <= 128 keeps the staged kernel
+    } else {
+      using G = RingTile<T, kRingBand>;
+      CUtensorMap mv, ma;
+      int e = ring_map<T, G>(&mv, vol, D, h, w);
+      if (!e) e = ring_map<T, G>(&ma, acc ? acc : vol, D, h, w);
+      if (e) return e;
+      const uint32_t slot = ring_region(D, G::PB) * (acc ? 2u : 1u);
+      const int ns = ring_stages(slot);
+      const size_t smem = kRingExtra + (size_t)ns * slot;
+      if (dx != 0) {  // only the diagonals pace their bands
+        const int nbands = (w + h - 1 + G::R - 1) / G::R;
+        e = (int)cudaMemsetAsync(prog, 0x7f, sizeof(int) * (size_t)nbands, (cudaStream_t)stream);
+        if (e) return e;
+      }
+      auto kern = sgm_scan_ring_kernel<T, ND, G>;
+      STEPTH_LAUNCH(kern, nblocks, G::NT, smem, stream, mv, ma, (T*)out, sched, prog, nblocks,
+                    acc ? 1 : 0, ns, D, h, w, dy, dx, p1, p2);
+    }
+  }
+};
 
 // ---- K8: the final up-scan with the WTA fused in -------------------------
 
@@ -869,10 +1297,27 @@ extern "C" int stepth_sgm_volume(const float* lg, const float* rg, const int* lc
 }
 
 // acc == NULL: the first direction (out = L); otherwise out = acc + L, and
-// out may be acc itself (in place).
+// out may be acc itself (in place). sched == NULL: the staged kernel;
+// otherwise the ring over the wrapper's schedule for `nblocks` blocks of
+// bands of kRingBand chains, with `prog` one int a band of scratch (dy =
+// +-1, 128 < D <= 256, w·sizeof(T) and every pointer a multiple of 16 bytes).
 extern "C" int stepth_sgm_scan(const void* vol, const void* acc, void* out, int bf16, int D,
                                int h, int w, int dy, int dx, float p1, float p2,
-                               void* stream) {
+                               const int* sched, int nblocks, int* prog, void* stream) {
+  if (sched) {
+    const int elem = bf16 ? 2 : 4;
+    const bool aligned = ((uintptr_t)vol | (uintptr_t)acc | (uintptr_t)out) % 16 == 0;
+    if (dy == 0 || D <= 128 || D > 256 || (w * elem) % 16 || !aligned || nblocks < 1 ||
+        !prog) {
+      return (int)cudaErrorInvalidValue;
+    }
+    if (bf16) {
+      return dispatch_nd<RingLaunch, __nv_bfloat16>(D, vol, acc, out, sched, prog, nblocks, D,
+                                                     h, w, dy, dx, p1, p2, stream);
+    }
+    return dispatch_nd<RingLaunch, float>(D, vol, acc, out, sched, prog, nblocks, D, h, w, dy,
+                                          dx, p1, p2, stream);
+  }
   if (bf16) {
     return dispatch_nd<ScanLaunch, __nv_bfloat16>(D, vol, acc, out, (const float*)nullptr,
                                                    (float*)nullptr, D, h, w, dy, dx, p1, p2,

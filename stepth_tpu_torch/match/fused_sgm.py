@@ -10,7 +10,11 @@ backend).
   ``shift`` the lateral step of a diagonal: ``(axis=1, reverse, shift)`` is
   the reference's ``(reverse, shift)`` on the untransposed volume. The
   accumulator is updated in place (the reference aliases it too); the
-  volume is never transposed.
+  volume is never transposed. A scan over rows with ``D > 128`` on rows
+  of 16-byte multiples, whose :func:`ring_schedule` needs no more blocks
+  than the card has SMs (:func:`takes_ring`), runs K7's ring of TMA-fed
+  step slots over that schedule, every other scan the staged kernel; each
+  launch adds one to ``sgm.scan_ring`` or ``sgm.scan_staged``.
 - K8 :func:`scan_wta_direction`: the final ↑y scan with the whole WTA fused
   in — ``agg = acc + L`` summed in f32, kept a stage at a time in shared
   memory and never written out — returning ``(disp, disp_r, cbest, uok)``. The right view needs other columns' costs:
@@ -51,7 +55,9 @@ same order as well.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -69,7 +75,8 @@ PTR, INT, FLOAT = kernels.PTR, kernels.INT, kernels.FLOAT
 K6 = kernels.Kernel("K6", "K6 sgm_volume", "stepth_sgm_volume",
                     [PTR] * 4 + [INT, PTR] + [INT] * 8, source=_SRC, replaces=f"{_REF}:71")
 K7 = kernels.Kernel("K7", "K7 sgm_scan", "stepth_sgm_scan",
-                    [PTR] * 3 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:262")
+                    [PTR] * 3 + [INT] * 6 + [FLOAT] * 2 + [PTR, INT, PTR], source=_SRC,
+                    replaces=f"{_REF}:262")
 K8 = kernels.Kernel("K8", "K8 sgm_scan_wta", "stepth_sgm_scan_wta",
                     [PTR, PTR, INT] + [PTR] * 4 + [INT] * 3 + [FLOAT] * 2 + [INT, FLOAT],
                     source=_SRC, replaces=f"{_REF}:748")
@@ -82,6 +89,8 @@ K10 = kernels.Kernel("K10", "K10 sgm_scan_carry", "stepth_sgm_scan_carry",
 _VOLUME_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 _MAX_D = 256  # eight path costs per lane of a scan warp
 _FUSED_MAX_D = 128  # the reference's fused-WTA limit, kept so bf16 outputs agree
+_RING_MIN_D = 128  # above it the staged tile's stage falls to 2 steps
+RING_BAND = 16  # chains a band of K7's ring (the kernel's kRingBand)
 
 # (axis, reverse, shift) in the reference's order of summation
 _HORIZONTAL = ((2, False, 0), (2, True, 0))  # →x, ←x
@@ -207,6 +216,110 @@ def _check_acc(name: str, acc: Optional[torch.Tensor], vol: torch.Tensor) -> Non
             raise ValueError(f"{name} {tuple(acc.shape)} != volume {tuple(vol.shape)}")
 
 
+def takes_ring(D: int, h: int, w: int, dy: int, dx: int, dtype: torch.dtype, sms: int,
+               *ptrs: int) -> bool:
+    """Whether a K7 launch takes the ring of TMA-fed step slots rather than
+    the staged kernel: a scan that steps over rows (``dy = ±1``: the
+    diagonals, ↓y and ↑y), more than 128 disparities (the staged tile's
+    stage falls to 2 steps there), rows and base addresses that a bulk
+    tensor copy can address (``w·itemsize`` and each pointer a multiple of
+    16 bytes), and a :func:`ring_schedule` of no more blocks than the
+    card's ``sms`` SMs, so that every block runs at once with all the slots
+    one SM holds (wider images keep the staged kernel)."""
+    if not (dy != 0 and _RING_MIN_D < D <= _MAX_D and w * dtype.itemsize % 16 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return False
+    starts, _ = ring_schedule(h, w, dy, dx)
+    return len(starts) - 1 <= sms
+
+
+def ring_bands(h: int, w: int, dy: int, dx: int):
+    """``(c0, start, steps)`` of each band of ``RING_BAND`` neighbouring
+    chains of a scan over rows (``dy = ±1``; ``dx`` 0, or ±1 for a
+    diagonal), in the kernel's geometry (``ScanGeo``): chains are indexed by
+    their intercept ``c = x − dx·dy·y``, a band is the chains ``[c0, c0 +
+    RING_BAND)``, its steps are the rows where one of them lies in the
+    image, and ``start`` is the step of the row-by-row wavefront (row 0
+    first going down, row ``h − 1`` going up) at which its first row comes."""
+    sl, band = dx * dy, RING_BAND
+    if sl == 0:
+        return [(c0, 0, h) for c0 in range(0, w, band)]
+    lo = -(h - 1) if sl > 0 else 0
+    out = []
+    for c0 in range(lo, lo + w + h - 1, band):
+        if sl > 0:  # x = c + y
+            r_lo, r_hi = max(0, -(c0 + band - 1)), min(h - 1, w - 1 - c0)
+        else:  # x = c − y
+            r_lo, r_hi = max(0, c0 - w + 1), min(h - 1, c0 + band - 1)
+        out.append((c0, r_lo if dy > 0 else h - 1 - r_hi, r_hi - r_lo + 1))
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def ring_schedule(h: int, w: int, dy: int, dx: int):
+    """The bands of each of K7's persistent ring blocks, so that every
+    block's bands keep pace with one wavefront down (or up) the rows:
+    neighbouring bands then write the same row at the same time, and the
+    L2 merges the 32-byte sectors that a diagonal band's unaligned run
+    shares with its neighbours before they reach memory. Bands go in order
+    of their ``start``, each to the block whose last band ended latest at or
+    before it (a new block when none has): as many blocks as bands meet one
+    row, and each block's bands follow one another without overlapping.
+    Returns ``(starts, c0s)``: block ``b`` runs the bands
+    ``c0s[starts[b]:starts[b + 1]]`` in that order."""
+    ends, owners, per = [], [], []  # ends sorted; owners[i] has its last band end at ends[i]
+    for c0, start, steps in sorted(ring_bands(h, w, dy, dx), key=lambda b: (b[1], b[0])):
+        i = bisect.bisect_right(ends, start) - 1
+        if i < 0:
+            b = len(per)
+            per.append([])
+        else:
+            b = owners.pop(i)
+            ends.pop(i)
+        per[b].append(c0)
+        j = bisect.bisect_right(ends, start + steps)
+        ends.insert(j, start + steps)
+        owners.insert(j, b)
+    starts = [0]
+    for p in per:
+        starts.append(starts[-1] + len(p))
+    return tuple(starts), tuple(c for p in per for c in p)
+
+
+@functools.lru_cache(maxsize=64)
+def _ring_schedule_on(device: torch.device, h: int, w: int, dy: int, dx: int):
+    """``ring_schedule`` as one int32 tensor on ``device``, the kernel's
+    ``sched`` (``starts``, then ``c0s``; read only), made once a shape and
+    direction; with the number of blocks and of bands."""
+    starts, c0s = ring_schedule(h, w, dy, dx)
+    return (torch.tensor(starts + c0s, dtype=torch.int32, device=device), len(starts) - 1,
+            len(c0s))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_k7(vol, acc, out, dy: int, dx: int, p1: float, p2: float) -> None:
+    """K7 onto ``out``: the ring where :func:`takes_ring` says so, with its
+    schedule and one word a band of scratch for the bands' progress (the
+    launcher sets it), else the staged kernel; counts ``sgm.scan_ring`` or
+    ``sgm.scan_staged``."""
+    D, h, w = vol.shape
+    ptrs = [t.data_ptr() for t in (vol, acc, out) if t is not None]
+    sched = prog = None
+    blocks = 0
+    if takes_ring(D, h, w, dy, dx, vol.dtype, _sm_count(vol.device), *ptrs):
+        sched, blocks, bands = _ring_schedule_on(vol.device, h, w, dy, dx)
+        prog = torch.empty(bands, dtype=torch.int32, device=vol.device)
+    K7.launch(vol.device, vol.data_ptr(), None if acc is None else acc.data_ptr(),
+              out.data_ptr(), int(vol.dtype == torch.bfloat16), D, h, w, dy, dx, float(p1),
+              float(p2), None if sched is None else sched.data_ptr(), blocks,
+              None if prog is None else prog.data_ptr())
+    tracing.count("sgm.scan_staged" if sched is None else "sgm.scan_ring")
+
+
 def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
                    shift: int = 0) -> torch.Tensor:
     """One SGM direction over ``vol`` [D, H, W] (twin of
@@ -218,11 +331,8 @@ def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
     dy, dx = _step(axis, reverse, shift)
     _check_volume("scan volume", vol)
     _check_acc("scan acc", acc, vol)
-    D, h, w = vol.shape
     out = torch.empty_like(vol) if acc is None else acc
-    K7.launch(vol.device, vol.data_ptr(), None if acc is None else acc.data_ptr(),
-              out.data_ptr(), int(vol.dtype == torch.bfloat16), D, h, w, dy, dx,
-              float(p1), float(p2))
+    _launch_k7(vol, acc, out, dy, dx, p1, p2)
     return out
 
 

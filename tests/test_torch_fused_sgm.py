@@ -14,10 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from stepth_tpu.config import MatchConfig as RefMatchConfig
 from stepth_tpu.match import pallas_sgm
 from stepth_tpu_torch.config import MatchConfig
 from stepth_tpu_torch.match import fused_sgm
+from stepth_tpu_torch.utils import tracing
 
 from tests.torch_port import cuda, np_, one_torch_thread  # noqa: F401 (fixtures)
 
@@ -139,6 +142,114 @@ def test_directions_order_and_checks():
         fused_sgm._step(0, False, 0)
 
 
+# ---- K7's ring: the rules the wrapper applies --------------------------------
+
+
+@pytest.mark.parametrize("D, h, w, dy, dx, dtype, offset, want", [
+    (256, 1080, 1920, 1, 1, torch.float32, 0, True),  # the 1080p D=256 diagonals: 121 blocks
+    (256, 1080, 1920, -1, 0, torch.float32, 0, True),  # and verticals: 120
+    (256, 1080, 1920, 0, 1, torch.float32, 0, False),  # →x, ←x: chains along the rows
+    (128, 375, 1242, 1, 0, torch.float32, 0, False),  # KITTI: D = 128
+    (128, 1080, 1920, -1, 0, torch.float32, 0, False),  # D = 128 on a 16-byte pitch
+    (129, 1080, 1920, -1, 1, torch.float32, 0, True),
+    (200, 375, 1242, 1, 0, torch.float32, 0, False),  # 4,968-byte rows
+    (200, 375, 1240, 1, -1, torch.bfloat16, 0, True),  # 2,480-byte rows
+    (200, 375, 1244, 1, 0, torch.bfloat16, 0, False),  # 2,488
+    (256, 9, 4, 1, 1, torch.float32, 0, True),  # one 16-byte chunk a row
+    (257, 1080, 1920, 1, 0, torch.float32, 0, False),  # past the scan limit
+    (256, 1080, 1920, 1, 0, torch.float32, 8, False),  # a tensor 8 bytes into its storage
+    (256, 1, 2112, 1, 0, torch.float32, 0, True),  # 132 bands: a block an SM
+    (256, 1, 2128, 1, 0, torch.float32, 0, False),  # 133: the staged kernel
+    (256, 1, 4240, 1, 1, torch.float32, 0, False),
+    (256, 1080, 5120, 1, 1, torch.float32, 0, False),  # 321 blocks
+    (256, 1080, 5120, -1, 0, torch.bfloat16, 0, False),  # 320
+    (200, 1080, 8192, 1, -1, torch.float32, 0, False),  # 513
+    (256, 2160, 3840, -1, 1, torch.bfloat16, 0, False),  # 4K: 241
+])
+def test_ring_rule(D, h, w, dy, dx, dtype, offset, want):
+    """Which K7 launches take the ring on a card of 132 SMs: scans over
+    rows at 128 < D <= 256, rows and pointers of 16-byte multiples, and a
+    schedule of no more blocks than SMs."""
+    assert fused_sgm.takes_ring(D, h, w, dy, dx, dtype, 132, 1 << 20,
+                                (1 << 20) + offset) is want
+
+
+def test_ring_band_is_the_kernels():
+    """The wrapper's bands are the ring kernel's (``kRingBand``), which the
+    launcher no longer takes as an argument."""
+    src = (fused_sgm.kernels.CSRC_DIR / "fused_sgm.cu").read_text()
+    assert f"constexpr int kRingBand = {fused_sgm.RING_BAND};" in src
+
+
+def test_scan_launches_choose_ring_or_staged(monkeypatch):
+    """What each K7 and K10 launch is given, on meta tensors standing for
+    the card's: at 1080×1920 D=256 the six scans over rows take the ring
+    (a schedule and its blocks) and the two along rows the staged kernel;
+    KITTI's D=128, rows past one block an SM and K10's relay never take
+    it. ``sgm.scan_ring`` and ``sgm.scan_staged`` count them."""
+    calls = []
+    monkeypatch.setattr(fused_sgm, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fused_sgm.kernels, "check_cuda_tensor", lambda *a: None)
+    monkeypatch.setattr(fused_sgm.K7, "launch", lambda dev, *a: calls.append(("K7", a)))
+    monkeypatch.setattr(fused_sgm.K10, "launch", lambda dev, *a: calls.append(("K10", a)))
+    for D, h, w, rings in ((256, 1080, 1920, 6), (128, 375, 1242, 0), (256, 1080, 5120, 0)):
+        vol = torch.empty((D, h, w), device="meta")
+        before = tracing.counters()
+        calls.clear()
+        for axis, reverse, shift in fused_sgm.directions(8):
+            fused_sgm.scan_direction(vol, torch.empty_like(vol), 8.0, 32.0, axis=axis,
+                                     reverse=reverse, shift=shift)
+        ring = [a[12] > 0 for _, a in calls]  # blocks: 0 for the staged kernel
+        assert sum(ring) == rings and len(calls) == 8
+        for (_, a), (axis, reverse, shift), r in zip(calls, fused_sgm.directions(8), ring):
+            assert r == (axis == 1 and rings > 0)
+            assert (a[11] is None) == (a[13] is None) == (not r)  # schedule, scratch
+            if r:
+                starts, c0s = fused_sgm.ring_schedule(h, w, *fused_sgm._step(axis, reverse,
+                                                                              shift))
+                assert a[12] == len(starts) - 1
+        after = tracing.counters()
+        assert after.get("sgm.scan_ring", 0) - before.get("sgm.scan_ring", 0) == rings
+        assert after.get("sgm.scan_staged", 0) - before.get("sgm.scan_staged", 0) == 8 - rings
+        calls.clear()
+        for reverse, shift in ((False, 1), (True, -1), (False, 0)):
+            fused_sgm.scan_direction_carry(vol, None, None, 8.0, 32.0, reverse=reverse,
+                                           shift=shift)
+        assert [k for k, _ in calls] == ["K10"] * 3
+        assert tracing.counters().get("sgm.scan_ring", 0) == after.get("sgm.scan_ring", 0)
+
+
+@pytest.mark.parametrize("h, w", [(1080, 1920), (1920, 1080), (37, 64), (70, 32), (1, 64),
+                                  (64, 1), (5, 3)])
+@pytest.mark.parametrize("dy, dx", [(1, 1), (1, -1), (-1, 1), (-1, -1), (1, 0), (-1, 0)])
+def test_ring_schedule_covers_every_band_once_along_the_wavefront(h, w, dy, dx):
+    """The ring's bands hold every chain once, each with the rows where it
+    meets the image; the schedule gives each band to one block, a block's
+    bands follow one another along the row wavefront without overlapping,
+    and there are as many blocks as bands meet one row."""
+    band, sl = fused_sgm.RING_BAND, dx * dy
+    bands = fused_sgm.ring_bands(h, w, dy, dx)
+    chains = np.arange(-(h - 1), w) if sl > 0 else np.arange(w + h - 1) if sl < 0 \
+        else np.arange(w)
+    held = np.concatenate([np.arange(c0, c0 + band) for c0, _, _ in bands])
+    np.testing.assert_array_equal(np.intersect1d(held, chains), chains)
+    assert len(np.unique(held)) == len(held)
+    y = np.arange(h)
+    for c0, start, steps in bands:
+        x = np.arange(c0, c0 + band)[:, None] + sl * y[None, :]
+        rows = y[((x >= 0) & (x < w)).any(0)]
+        assert steps == len(rows) == rows[-1] - rows[0] + 1
+        assert start == (rows[0] if dy > 0 else h - 1 - rows[-1])
+    starts, c0s = fused_sgm.ring_schedule(h, w, dy, dx)
+    assert sorted(c0s) == sorted(c0 for c0, _, _ in bands)
+    span = {c0: (start, start + steps) for c0, start, steps in bands}
+    for b in range(len(starts) - 1):
+        mine = [span[c] for c in c0s[starts[b]:starts[b + 1]]]
+        assert mine and all(e <= s for (_, e), (s, _) in zip(mine, mine[1:]))
+    meet = max(sum(s <= t < e for s, e in span.values()) for t in range(h))
+    assert len(starts) - 1 == meet
+
+
 # ---- on a card ------------------------------------------------------------
 
 
@@ -181,35 +292,68 @@ def test_kernels_match_plain_on_card(cuda, cost, D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("acc_mode", ["none", "separate", "in_place"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1, 33, 64, 200, 256])
+@pytest.mark.parametrize("D", [1, 33, 64, 129, 200, 256])
 def test_scan_edges_match_plain_on_card(cuda, D, dtype, acc_mode):
     """K7 bit-equal to its plain version in all eight directions on ragged
     shapes: h and w that are not multiples of the kernel's bands and stages
     (8 or 16 chains, 2-16 steps), smaller than one band, one row, one
-    column; ``acc`` None, a separate tensor, or updated in place."""
+    column; and on rows of 16-byte multiples, where the scans over rows at
+    D > 128 take the ring (counted on ``sgm.scan_ring``); ``acc`` None, a
+    separate tensor, or updated in place (``chip_smoke.K7_EDGE_SHAPES``,
+    which ``chip_smoke.check_edges`` repeats on the card)."""
     rng = np.random.default_rng(D)
-    for h, w in ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40)):
+    for h, w in chip_smoke.K7_EDGE_SHAPES:
         vol = torch.from_numpy(rng.integers(0, 50, (D, h, w)).astype(np.float32)).to(cuda)
         acc0 = torch.from_numpy(rng.integers(0, 500, (D, h, w)).astype(np.float32)).to(cuda)
         vol, acc0 = vol.to(dtype), acc0.to(dtype)
         for axis, reverse, shift in fused_sgm.directions(8):
             kw = dict(axis=axis, reverse=reverse, shift=shift)
+            dy, dx = fused_sgm._step(axis, reverse, shift)
+            ring = D > 128 and dy != 0 and w * vol.element_size() % 16 == 0
+            assert ring == fused_sgm.takes_ring(D, h, w, dy, dx, dtype,
+                                                fused_sgm._sm_count(vol.device))
             acc = None if acc_mode == "none" else acc0.clone()
             want = fused_sgm.scan_direction_plain(vol, None if acc is None else acc.clone(),
                                                   25.0, 100.0, **kw)
+            before = tracing.counters().get("sgm.scan_ring", 0)
             if acc_mode == "separate":  # out beside acc, which stays as it was
-                out = torch.empty_like(vol)
-                dy, dx = fused_sgm._step(axis, reverse, shift)
-                fused_sgm.K7.launch(cuda, vol.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                                    int(dtype == torch.bfloat16), D, h, w, dy, dx, 25.0, 100.0)
-                torch.cuda.synchronize()
-                assert torch.equal(out, want) and torch.equal(acc, acc0), (h, w, kw)
-                continue
-            got = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, **kw)
+                got = torch.empty_like(vol)
+                fused_sgm._launch_k7(vol, acc, got, dy, dx, 25.0, 100.0)
+            else:
+                got = fused_sgm.scan_direction(vol, acc, 25.0, 100.0, **kw)
             torch.cuda.synchronize()
+            assert tracing.counters().get("sgm.scan_ring", 0) - before == int(ring), (h, w, kw)
             assert torch.equal(got, want), (h, w, kw)
+            if acc_mode == "separate":
+                assert torch.equal(acc, acc0), (h, w, kw)
             if acc_mode == "in_place":
                 assert got.data_ptr() == acc.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_rows_match_plain_on_card(cuda, dtype):
+    """K7 at D=256 over rows as wide as one block an SM takes (the ring) and
+    wider (the staged kernel: the ring's schedule would need more blocks
+    than SMs), bit-equal to the plain version and counted on
+    ``sgm.scan_ring`` or ``sgm.scan_staged`` (``chip_smoke.K7_WIDE_SHAPES``,
+    which ``chip_smoke.check_edges`` repeats on the card)."""
+    rng = np.random.default_rng(4240)
+    sms = fused_sgm._sm_count(cuda)
+    for h, w in chip_smoke.K7_WIDE_SHAPES:
+        vol, acc = (torch.from_numpy(rng.integers(0, hi, (256, h, w)).astype(np.float32))
+                    .to(cuda).to(dtype) for hi in (50, 500))
+        for axis, reverse, shift in fused_sgm.directions(8)[2:]:  # the six over rows
+            dy, dx = fused_sgm._step(axis, reverse, shift)
+            blocks = len(fused_sgm.ring_schedule(h, w, dy, dx)[0]) - 1
+            kw = dict(axis=axis, reverse=reverse, shift=shift)
+            want = fused_sgm.scan_direction_plain(vol, acc.clone(), 25.0, 100.0, **kw)
+            before = tracing.counters().get("sgm.scan_ring", 0)
+            got = fused_sgm.scan_direction(vol, acc.clone(), 25.0, 100.0, **kw)
+            torch.cuda.synchronize()
+            ring = tracing.counters().get("sgm.scan_ring", 0) - before
+            assert ring == int(blocks <= sms), (h, w, kw, blocks)
+            assert torch.equal(got, want), (h, w, kw)
 
 
 @pytest.mark.cuda

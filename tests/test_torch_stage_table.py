@@ -44,6 +44,16 @@ def test_every_kernel_is_registered_once():
     assert kernels.REGISTRY["K1"] is registry["K1"]
 
 
+def test_every_kernel_takes_what_its_c_prototype_declares():
+    """Each kernel's argument types, and the stream after them, are as many
+    as its ``extern "C"`` prototype declares (``compare_kernels.c_arity``,
+    which calls an older library with as many as its own sources declare)."""
+    import compare_kernels
+
+    for key, k in kernels.registry().items():
+        assert compare_kernels.c_arity(kernels.CSRC_DIR, k.symbol) == len(k.argtypes) + 1, key
+
+
 def test_stage_kernels_name_every_stage_by_registered_keys():
     registry = kernels.registry()
     assert set(fused_refine.STAGE_KERNELS) == set(fused_refine.Stages._fields)
