@@ -56,9 +56,10 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
       multiple of the tile width, right-view winners one or two tiles
       away, census with 1–3 planes, row shards with ``g_row0`` < 0 and
       ``g_row0 + h > g_h``, one 1080-row case); K7 in all 8 directions at D
-      = 1, 33, 64, 129, 200 and 256, f32 and bf16, ``acc`` None, separate
-      and in place, on ragged shapes down to one row and one column and on
-      rows of 16-byte multiples (the ring at D > 128), at 1080×1920,
+      = 1, 33, 64, 129, 200, 256, 257, 290, 320 and 512 (``K7_EDGE_D``),
+      f32 and bf16, ``acc`` None, separate and in place, on ragged shapes
+      down to one row and one column and on rows of 16-byte multiples (the
+      ring at 128 < D ≤ 256, the deep tiling past 256), at 1080×1920,
       D=256, and over rows as wide as one block an SM takes and wider; K8
       on
       ``K8_EDGES`` (D = 1, 16, 33, 64, 128, f32 and bf16, uniqueness on
@@ -129,8 +130,13 @@ Run from the root of a checkout on a machine with one CUDA card. Phases:
    beforehand, so that their bounds meet a time of the same work (K2 on
    both scenes: ``box`` plans multi-window tiles at depth edges), K1 and
    K8 with the fill of their right-view buffer, K7 per direction, K11
-   against ``grid_sample``; and K1 alone at the ``flagship()`` shape
-   against its bound there;
+   against ``grid_sample``; K1 alone at the ``flagship()`` shape
+   against its bound there; and K7 on its deep tiling at the Middlebury F
+   frame (1988×2880, D=290), each direction in place against its byte
+   bound (``deep_scan_times``, JSON ``K7.deep``), once that frame has
+   passed ``check_deep_frame``: K6, the 8 K7 scans in place, K9 with K4
+   and ``StereoModel.__call__`` (launches and counters read) bit-equal to
+   the plain path, f32 and bf16;
 6. the reference's own flows through the port's entry points
    (``reference_flows``): a. parity through ``DepthFrame`` on a 400×600
    RGB pair (the shape of the reference's bundled images; a 4×4-block
@@ -425,6 +431,10 @@ K1_EDGES = (
 # wider than the image)
 K7_EDGE_SHAPES = ((13, 21), (5, 7), (1, 37), (29, 1), (3, 40),
                   (37, 64), (70, 32), (9, 128), (5, 256), (3, 8))
+# K7's D: each ND class of a lane's path costs (1-8 on the staged tiles, 9-16
+# on the deep tiling past 256: 257, 290 and 320 share ND = 10), the ring's
+# range 129-256
+K7_EDGE_D = (1, 33, 64, 129, 200, 256, 257, 290, 320, 512)
 # K7's at D=256 over rows: as wide as one block an SM takes (2112 = 132
 # bands of 16 on an H100's 132 SMs: the ring) and wider (the staged kernel)
 K7_WIDE_SHAPES = ((1, 2112), (1, 4240), (3, 4240))
@@ -658,15 +668,132 @@ def edge_pair(rng, h, w, shift):
     return left, right
 
 
+DEEP_SHAPE, DEEP_D = (1988, 2880), 290  # the middlebury2014-f-sgm8-census frame
+DEEP_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                           "middlebury2014-f-sgm8-census.json")
+
+
+def check_deep_frame(dev, err):
+    """The middlebury2014-f-sgm8-census frame (1988×2880, D=290) against
+    the plain path, stage by stage, with an f32 volume (the
+    configuration's) and a bf16 one (its control): K6 on the census
+    planes; each of the 8 K7 scans onto the accumulator in place, on the
+    deep tiling (one ``sgm.scan_deep`` a launch); K9 with K4 on the stored
+    sum; then the whole frame through ``StereoModel.__call__`` against
+    ``match_pair_sgm_plain``, its launches and counters read. The input is
+    the ``middlebury-f-sgm8-census-box`` cell's first frame. Any
+    difference raises; ``deep_scan_times`` runs after it."""
+    from portbench import traffic
+    from stepth_tpu_torch import kernels
+    from stepth_tpu_torch.config import from_dict
+    from stepth_tpu_torch.match import dense, fused_sgm
+    from stepth_tpu_torch.match.sgm import penalties
+    from stepth_tpu_torch.models.stereo import StereoModel
+    from stepth_tpu_torch.utils import tracing
+
+    def moved(before):
+        now = tracing.counters()
+        return {k: now[k] - before.get(k, 0) for k in now if now[k] != before.get(k, 0)}
+
+    with open(DEEP_CONFIG) as f:
+        model_cfg = json.load(f)["model"]
+    params = dict(traffic.load("middlebury-f-sgm8-census-box"), pool=1)
+    lefts, rights = traffic.make_pool(params, DEEP_SHAPE, SEED)
+    left, right = (torch.as_tensor(a[0], device=dev).to(torch.float32) for a in (lefts, rights))
+    registry = kernels.registry()
+    frame_launches = {n: 0 for n in registry} | {
+        "census": 1, "K6": 1, "K7": 8, "K9": 1, "K4": 1, "K5": 1, "K3": 1}
+    h, w = DEEP_SHAPE
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        model_cfg["sgm"]["volume_dtype"] = name
+        model = from_dict(StereoModel, model_cfg)
+        cfg, sg = model.match, model.sgm
+        tag = f"{h}x{w} D={cfg.num_disparities} {name}"
+        lg, rg = dense.grayscale(left), dense.grayscale(right)
+        vol = fused_sgm.aggregated_volume(lg, rg, cfg, dtype)
+        if not torch.equal(vol, fused_sgm.aggregated_volume_plain(lg, rg, cfg, dtype)):
+            raise AssertionError(f"K6 {tag}: not bit-equal")
+        err("K6", 0.0)
+        p1, p2 = penalties(cfg, sg)
+        acc = acc_p = None
+        for axis, rev, sh in fused_sgm.directions(8):
+            kw = dict(axis=axis, reverse=rev, shift=sh)
+            before = tracing.counters()
+            into = acc
+            acc = fused_sgm.scan_direction(vol, acc, p1, p2, **kw)
+            torch.cuda.synchronize()
+            counted = moved(before)
+            acc_p = fused_sgm.scan_direction_plain(vol, acc_p, p1, p2, **kw)
+            if not (torch.equal(acc, acc_p) and counted == {"sgm.scan_deep": 1}
+                    and (into is None or acc.data_ptr() == into.data_ptr())):
+                raise AssertionError(f"K7 {tag} {kw}: not bit-equal, not in place or "
+                                     f"miscounted ({counted})")
+            err("K7", 0.0)
+        del vol, acc_p
+        got, want = fused_sgm.wta_from_volume(acc, cfg), fused_sgm.wta_from_volume_plain(acc, cfg)
+        torch.cuda.synchronize()
+        if not all(bits_equal(a, b) for a, b in zip(want, got)):
+            raise AssertionError(f"K9 and K4 {tag} on the stored sum: not bit-equal")
+        err("K9", 0.0)
+        err("K4", 0.0)
+        del acc, got, want
+        torch.cuda.empty_cache()
+        for k in registry.values():
+            k.launches = 0
+        before = tracing.counters()
+        got = model(left, right)
+        torch.cuda.synchronize()
+        launches, counted = {n: k.launches for n, k in registry.items()}, moved(before)
+        want = fused_sgm.match_pair_sgm_plain(left, right, cfg, sg)
+        torch.cuda.synchronize()
+        if not (bits_equal(want.disparity, got.disparity) and torch.equal(want.valid, got.valid)
+                and bits_equal(want.cost, got.cost)):
+            raise AssertionError(f"StereoModel sgm-pallas {tag}: not bit-equal to the plain path")
+        want_counted = {"census.kernel": 1, "sgm.wta_stored": 1, "sgm.scan_deep": 8}
+        if launches != frame_launches or counted != want_counted:
+            raise AssertionError(f"StereoModel sgm-pallas {tag}: launches {launches} (want "
+                                 f"{frame_launches}), counters {counted} (want {want_counted})")
+        del got, want
+        torch.cuda.empty_cache()
+        print(f"  {tag}: K6, the 8 K7 scans in place (each one sgm.scan_deep), K9 + K4 and "
+              f"StereoModel.__call__ bit-equal to the plain path; a frame launches "
+              f"{ {n: c for n, c in launches.items() if c} }")
+
+
+def deep_scan_times(dev, arrows, launches=5):
+    """K7 on its deep tiling at the Middlebury F frame (1988×2880, D=290,
+    f32), each direction onto an accumulator in place: device ms a launch
+    (``launches`` in one graph) against the byte bound of vol and acc read
+    and the sum written (12 bytes a cell)."""
+    from stepth_tpu_torch.match import fused_sgm
+
+    h, w = DEEP_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    vol, acc = (torch.randint(0, hi, (DEEP_D, h, w), generator=gen, device=dev).float()
+                for hi in (60, 600))
+    bound_ms = bound(12 * DEEP_D * h * w, 8 * DEEP_D * h * w)[0]  # 3 f32 reads and writes
+    out = {"shape": [h, w], "D": DEEP_D, "bound_ms": bound_ms, "device_ms_by_direction": {}}
+    for axis, rev, sh in fused_sgm.directions(8):
+        ms = device_ms(lambda axis=axis, rev=rev, sh=sh: fused_sgm.scan_direction(
+            vol, acc, 8.0, 96.0, axis=axis, reverse=rev, shift=sh), launches)
+        out["device_ms_by_direction"][arrows[(axis, rev, sh)]] = ms
+        print(f"  K7 {arrows[(axis, rev, sh)]} {h}x{w} D={DEEP_D} (deep tiling): {ms:.4f} ms "
+              f"per launch, bound {bound_ms:.4f} ms (bytes), {bound_ms / ms:.1%}")
+    del vol, acc
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_edges(dev, err):
     """K1, K7, K8, K10 and K11 against their plain versions on the shapes
     and inputs the main paths do not reach (the CPU suite's
     ``cuda``-marked cases of ``tests/test_torch_fused_dense.py``,
     ``test_torch_fused_sgm.py``, ``test_torch_sgm_relay.py`` and
     ``test_torch_fused_remap.py``, which import JAX and so cannot run on the
-    card): K1 on ``K1_EDGES``; K7 in all 8 directions at D = 1, 33, 64, 129,
-    200, 256, f32 and bf16, ``acc`` None, separate and in place, on
-    ``K7_EDGE_SHAPES`` (the ring's counted on ``sgm.scan_ring``), at
+    card): K1 on ``K1_EDGES``; K7 in all 8 directions at ``K7_EDGE_D``
+    (D 1-512), f32 and bf16, ``acc`` None, separate and in place, on
+    ``K7_EDGE_SHAPES`` (each launch counted on ``sgm.scan_ring``,
+    ``sgm.scan_deep`` or ``sgm.scan_staged`` by the tiling it takes), at
     1080×1920, D=256, f32 and bf16, and over rows on ``K7_WIDE_SHAPES`` at
     D=256 (the ring up to one block an SM, the staged kernel past it); K8
     on ``K8_EDGES``; K10 relayed
@@ -706,8 +833,8 @@ def check_edges(dev, err):
         err("K8", 0.0)
     print(f"  K8: {len(K8_EDGES)} cases bit-equal (D 1-128, f32/bf16, uniqueness on/off, "
           f"h 1/2/9, w 1/17/300)")
-    n = rings = 0
-    for D in (1, 33, 64, 129, 200, 256):
+    n = rings = deep = 0
+    for D in K7_EDGE_D:
         for dtype in (torch.float32, torch.bfloat16):
             for h, w in K7_EDGE_SHAPES:
                 vol, acc0 = (torch.as_tensor(rng.integers(0, hi, (D, h, w)).astype(np.float32),
@@ -715,12 +842,12 @@ def check_edges(dev, err):
                 for axis, rev, sh in fused_sgm.directions(8):
                     kw = dict(axis=axis, reverse=rev, shift=sh)
                     dy, dx = fused_sgm._step(axis, rev, sh)
-                    ring = D > 128 and dy != 0 and w * vol.element_size() % 16 == 0
+                    ring = 128 < D <= 256 and dy != 0 and w * vol.element_size() % 16 == 0
                     for mode in ("none", "separate", "in place"):
                         acc = None if mode == "none" else acc0.clone()
                         want = fused_sgm.scan_direction_plain(
                             vol, None if acc is None else acc.clone(), 25.0, 100.0, **kw)
-                        before = tracing.counters().get("sgm.scan_ring", 0)
+                        before = tracing.counters()
                         if mode == "separate":  # out beside acc, which stays as it was
                             got = torch.empty_like(vol)
                             fused_sgm._launch_k7(vol, acc, got, dy, dx, 25.0, 100.0)
@@ -729,16 +856,21 @@ def check_edges(dev, err):
                         torch.cuda.synchronize()
                         ok = torch.equal(got, want) and (
                             mode != "separate" or torch.equal(acc, acc0)) and (
-                            mode != "in place" or got.data_ptr() == acc.data_ptr()) and (
-                            tracing.counters().get("sgm.scan_ring", 0) - before == int(ring))
+                            mode != "in place" or got.data_ptr() == acc.data_ptr())
+                        counter = ("sgm.scan_ring" if ring else
+                                   "sgm.scan_deep" if D > 256 else "sgm.scan_staged")
+                        after = tracing.counters()
+                        ok = ok and {k: after[k] - before.get(k, 0) for k in after
+                                     if after[k] != before.get(k, 0)} == {counter: 1}
                         if not ok:
                             raise AssertionError(f"K7 {h}x{w} D={D} {dtype} {kw} acc {mode} "
-                                                 f"(ring {ring}): not bit-equal or miscounted")
+                                                 f"({counter}): not bit-equal or miscounted")
                         err("K7", 0.0)
                         n += 1
                         rings += ring
-    print(f"  K7: {n} edge cases bit-equal, {rings} of them on the ring (D 1-256, f32/bf16, "
-          f"acc none/separate/in place)")
+                        deep += D > 256
+    print(f"  K7: {n} edge cases bit-equal, {rings} of them on the ring, {deep} on the deep "
+          f"tiling (D {K7_EDGE_D}, f32/bf16, acc none/separate/in place)")
     # the ring at its main shape: 1080x1920, D=256, every direction, onto an
     # accumulator in place
     for dtype in (torch.float32, torch.bfloat16):
@@ -2493,6 +2625,8 @@ def main() -> int:
               f"per launch over {DEVICE_LAUNCHES} back to back")
     del scratch
     device["K7"] = float(np.mean([k7_dirs[a][1] for a in ("→x", "←x", "↓y")]))
+    check_deep_frame(dev, err)
+    k7_deep = deep_scan_times(dev, arrows)
     for name in ("K6", "K7", "K8", "K9"):
         print(f"  {name} {H}x{W} D=64: kernel {times[name][0]:.4f} ms, "
               f"plain {times[name][1]:.4f} ms (plain: median of {pr})")
@@ -3190,7 +3324,8 @@ def main() -> int:
         "K2": {"box_device_ms": box_k2[0], "box_bound_ms": box_k2[1][0],
                "box_bound_by": box_k2[1][1]},
         "K7": {"ms_by_direction": {a: t[0] for a, t in k7_dirs.items()},
-               "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()}},
+               "device_ms_by_direction": {a: t[1] for a, t in k7_dirs.items()},
+               "deep": k7_deep},
         "K11": {"library_device_ms": k11_device[1]},
         "census": {"window": census.census_window, "levels": {
             scene: [{"shape": list(shape), "ms": ms, "device_ms": dms, "plain_ms": pms,

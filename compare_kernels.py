@@ -34,8 +34,10 @@ lack trailing arguments). Both versions run on the same inputs:
 - K7 in each of the 8 directions at 1080×1920, D=64, f32, onto an
   accumulator, then at D=256 in place, at 1080×1920 and 1920×1080 (each
   version as its wrapper would launch it: the ring where the new
-  ``takes_ring`` says so), and three K7 launches of the 135×240 D=16
-  coarse level;
+  ``takes_ring`` says so), at 1080×1920, D=128, onto an accumulator, and
+  three K7 launches of the 135×240 D=16 coarse level; and the new version
+  alone at 1988×2880, D=290 (the deep tiling, which an older version
+  refuses), in place, against its byte bound;
 - K10 on one 360×1920 shard, D=64, seeded from a carry;
 - K11 on a 1080×1920×3 view through the 1080p rig map of ``chip_smoke.py``,
   and ``grid_sample`` on the same view as a yardstick;
@@ -439,6 +441,39 @@ def main() -> int:
             result[f"K7 {H2}x{W2} D={D2} {name}, ms summed"] = {
                 v: sum(k7w[a][v] for a in arrows_) for v in ("old", "new")}
         del vol2, acc2, out2
+    # K7 at D=128 (ND = 4, the staged kernel in both versions), old against
+    # new; then at D=290 on the Middlebury F frame (1988×2880), the deep
+    # tiling, which an older version refuses: the new one alone, in place,
+    # against the byte bound of vol and acc read and the sum written
+    vol2 = torch.randint(0, 60, (128, H, W), generator=gen, device=dev).float()
+    acc2 = torch.randint(0, 600, (128, H, W), generator=gen, device=dev).float()
+    out2 = torch.empty_like(vol2)
+    k7m = {}
+    for axis, rev, sh in fused_sgm.directions(8):
+        a_ = (vol2.data_ptr(), acc2.data_ptr(), out2.data_ptr(), 0, 128, H, W,
+              *fused_sgm._step(axis, rev, sh), 8.0, 96.0, None, 0, None)
+        same(fused_sgm.K7, [out2], *a_)
+        k7m[arrows[(axis, rev, sh)]] = turns(versions(fused_sgm.K7, *a_))
+        print(f"K7 {arrows[(axis, rev, sh)]} {H}x{W} D=128: {k7m[arrows[(axis, rev, sh)]]}")
+    result[f"K7 {H}x{W} D=128 f32, ms per direction"] = k7m
+    del vol2, acc2, out2
+    D3, H3, W3 = chip_smoke.DEEP_D, *chip_smoke.DEEP_SHAPE
+    vol3 = torch.randint(0, 60, (D3, H3, W3), generator=gen, device=dev).float()
+    acc3 = torch.randint(0, 600, (D3, H3, W3), generator=gen, device=dev).float()
+    # vol and acc read, the sum written: 3 × 4 bytes a cell
+    bound3 = chip_smoke.bound(12 * D3 * H3 * W3, 8 * D3 * H3 * W3)[0]
+    new_k7 = bound(kernels.load(), fused_sgm.K7)
+    k7d = {}
+    for axis, rev, sh in fused_sgm.directions(8):
+        a_ = (vol3.data_ptr(), acc3.data_ptr(), acc3.data_ptr(), 0, D3, H3, W3,
+              *fused_sgm._step(axis, rev, sh), 8.0, 96.0, None, 0, None)
+        ms = turns({"new": lambda a_=a_: new_k7(*a_)})["new"]
+        k7d[arrows[(axis, rev, sh)]] = {"new": ms, "bound": bound3, "share": bound3 / ms}
+        print(f"K7 {arrows[(axis, rev, sh)]} {H3}x{W3} D={D3}: {ms:.4f} ms, bound "
+              f"{bound3:.4f} ms ({bound3 / ms:.1%})")
+    result[f"K7 {H3}x{W3} D={D3} f32 in place (deep tiling), ms per direction"] = k7d
+    del vol3, acc3
+    torch.cuda.empty_cache()
     vol = torch.randint(0, 60, (D, H, W), generator=gen, device=dev).float()
     acc = torch.randint(0, 600, (D, H, W), generator=gen, device=dev).float()
 

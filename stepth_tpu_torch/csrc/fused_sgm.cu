@@ -59,7 +59,10 @@
 // Upright images gain too (1920x1080: diagonals 8.1 -> 7.1 ms, 69
 // blocks). The staged kernel still runs the scans along rows (dy = 0),
 // every scan at D <= 128 (KITTI, the coarse levels), unaligned pitches,
-// rows wider than 132 bands on an H100 (2112 columns), and K10.
+// rows wider than 132 bands on an H100 (2112 columns), and K10; and every
+// scan at 256 < D <= 512 (a 6 MP Middlebury frame at D=290), on a deep
+// tiling that fits those D in a block's shared memory (the section "K7 at
+// D > 256" below).
 //
 // K10 is K7's kernel with CARRY set; K7's instantiation compiles without the
 // carry code. The scanned axis is rows (dy = +-1). A chain that starts on the
@@ -1211,6 +1214,12 @@ int dispatch_nd(int D, Args... args) {
   }
 }
 
+// shared memory of a staged scan's ring at D disparities
+template <class G>
+constexpr size_t staged_smem(int D) {
+  return sizeof(uint32_t) * G::NST * 2 * (size_t)D * G::DSTR;
+}
+
 // carry_out == NULL: K7; otherwise K10 (carry_in == NULL seeds zeros)
 template <typename T, int ND, bool HORIZ, bool CARRY, class G = typename ScanPick<T, ND, HORIZ>::type>
 int launch_scan(const void* vol, const void* acc, void* out, const float* carry_in,
@@ -1218,7 +1227,7 @@ int launch_scan(const void* vol, const void* acc, void* out, const float* carry_
                 void* stream) {
   const int nchains = HORIZ ? h : dx == 0 ? w : w + h - 1;
   const int blocks = (nchains + G::NCH - 1) / G::NCH;
-  const size_t smem = sizeof(uint32_t) * G::NST * 2 * (size_t)D * G::DSTR;
+  const size_t smem = staged_smem<G>(D);
   auto kern = sgm_scan_kernel<T, ND, HORIZ, CARRY, G>;
   STEPTH_LAUNCH(kern, blocks, G::NT, smem, stream, (const T*)vol, (const T*)acc, (T*)out,
                 carry_in, carry_out, D, h, w, dy, dx, p1, p2);
@@ -1241,6 +1250,50 @@ struct ScanLaunch {
                                             p1, p2, stream);
   }
 };
+
+// ---- K7 at D > 256: the staged kernel on its deep tiling --------------------
+//
+// Past 256 disparities a lane keeps ND = 10, 12 or 16 path costs (D rounded
+// up to 320, 384 or 512; lanes past D hold BIG, as below). The scans along
+// rows keep their tile (a chain a block, 16-step runs, two slots: 139 KB at
+// D = 512). The scans over rows cannot: three slots of two steps of 16
+// chains take 3·2·D·33 words, over 227 KB from D = 294. Their deep tile
+// keeps the band of 16 chains and three slots of one step each (209 KB at
+// D = 512). Timed on an H100 at 1988x2880, D=290, f32, in place (ms a
+// launch): these tiles 22.3 (→x), 20.1-23.9 (diagonals) and 13.5-14.6
+// (↓y ↑y); against them, with acc read back from the slot, runs of 8
+// steps along rows 27.0 and of 4 62.8 (16: 21.8), two slots over rows
+// 23.2-23.9 and 13.0, bands of 8 chains 34.0 and 20.4. K10 stays at
+// D <= 256 (its wrapper refuses more).
+constexpr int kDeepMaxD = 512;
+
+template <typename T, int ND, bool HORIZ>
+using DeepTile = typename std::conditional<HORIZ, typename ScanPick<T, ND, true>::type,
+                                           ScanTile<T, 16, 1, 3, false>>::type;
+static_assert(staged_smem<DeepTile<float, 16, false>>(kDeepMaxD) <= kMaxSmem &&
+                  staged_smem<DeepTile<float, 16, true>>(kDeepMaxD) <= kMaxSmem,
+              "the deep tiles fit at D = 512");
+
+template <typename T, int ND>
+struct DeepLaunch {
+  static int run(const void* vol, const void* acc, void* out, int D, int h, int w, int dy,
+                 int dx, float p1, float p2, void* stream) {
+    if (dy == 0) {
+      return launch_scan<T, ND, true, false, DeepTile<T, ND, true>>(
+          vol, acc, out, nullptr, nullptr, D, h, w, dy, dx, p1, p2, stream);
+    }
+    return launch_scan<T, ND, false, false, DeepTile<T, ND, false>>(
+        vol, acc, out, nullptr, nullptr, D, h, w, dy, dx, p1, p2, stream);
+  }
+};
+
+template <typename T>
+int launch_deep(const void* vol, const void* acc, void* out, int D, int h, int w, int dy,
+                int dx, float p1, float p2, void* stream) {
+  if (D <= 320) return DeepLaunch<T, 10>::run(vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+  if (D <= 384) return DeepLaunch<T, 12>::run(vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+  return DeepLaunch<T, 16>::run(vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+}
 
 // K8's tiling: K7's vertical one, with a 2-slot ring where 3 slots and the
 // stage's agg would not fit the 227 KB a block may use (f32 at D in 97-128
@@ -1297,13 +1350,19 @@ extern "C" int stepth_sgm_volume(const float* lg, const float* rg, const int* lc
 }
 
 // acc == NULL: the first direction (out = L); otherwise out = acc + L, and
-// out may be acc itself (in place). sched == NULL: the staged kernel;
-// otherwise the ring over the wrapper's schedule for `nblocks` blocks of
-// bands of kRingBand chains, with `prog` one int a band of scratch (dy =
-// +-1, 128 < D <= 256, w·sizeof(T) and every pointer a multiple of 16 bytes).
+// out may be acc itself (in place). sched == NULL: the staged kernel (on its
+// deep tiling for 256 < D <= 512); otherwise the ring over the wrapper's
+// schedule for `nblocks` blocks of bands of kRingBand chains, with `prog`
+// one int a band of scratch (dy = +-1, 128 < D <= 256, w·sizeof(T) and
+// every pointer a multiple of 16 bytes).
 extern "C" int stepth_sgm_scan(const void* vol, const void* acc, void* out, int bf16, int D,
                                int h, int w, int dy, int dx, float p1, float p2,
                                const int* sched, int nblocks, int* prog, void* stream) {
+  if (D > 256) {
+    if (D > kDeepMaxD || sched) return (int)cudaErrorInvalidValue;
+    if (bf16) return launch_deep<__nv_bfloat16>(vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+    return launch_deep<float>(vol, acc, out, D, h, w, dy, dx, p1, p2, stream);
+  }
   if (sched) {
     const int elem = bf16 ? 2 : 4;
     const bool aligned = ((uintptr_t)vol | (uintptr_t)acc | (uintptr_t)out) % 16 == 0;

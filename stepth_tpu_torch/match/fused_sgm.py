@@ -10,11 +10,13 @@ backend).
   ``shift`` the lateral step of a diagonal: ``(axis=1, reverse, shift)`` is
   the reference's ``(reverse, shift)`` on the untransposed volume. The
   accumulator is updated in place (the reference aliases it too); the
-  volume is never transposed. A scan over rows with ``D > 128`` on rows
-  of 16-byte multiples, whose :func:`ring_schedule` needs no more blocks
-  than the card has SMs (:func:`takes_ring`), runs K7's ring of TMA-fed
-  step slots over that schedule, every other scan the staged kernel; each
-  launch adds one to ``sgm.scan_ring`` or ``sgm.scan_staged``.
+  volume is never transposed. A scan over rows with ``128 < D ≤ 256`` on
+  rows of 16-byte multiples, whose :func:`ring_schedule` needs no more
+  blocks than the card has SMs (:func:`takes_ring`), runs K7's ring of
+  TMA-fed step slots over that schedule; a scan with ``256 < D ≤ 512`` the
+  staged kernel on its deep tiling (one step a stage over rows); every
+  other scan the staged kernel. Each launch adds one to
+  ``sgm.scan_ring``, ``sgm.scan_deep`` or ``sgm.scan_staged``.
 - K8 :func:`scan_wta_direction`: the final ↑y scan with the whole WTA fused
   in — ``agg = acc + L`` summed in f32, kept a stage at a time in shared
   memory and never written out — returning ``(disp, disp_r, cbest, uok)``. The right view needs other columns' costs:
@@ -28,7 +30,8 @@ backend).
   seeded from the upstream shard's final carry ``[D, W]`` and returning its
   own — the relay primitive of the sharded ``sgm-pallas`` path
   (``parallel/sgm_pallas_sharded.py``). A split scan relayed through it
-  equals one continuous K7 scan bit for bit.
+  equals one continuous K7 scan bit for bit. It takes ``D ≤ 256``; its
+  wrapper refuses more by name.
 
 The pipeline runs the stages of ``fused_refine``'s table and keeps the
 reference's rule of which path runs: with 4 or 8 directions and ``D ≤
@@ -38,8 +41,9 @@ In f32 both give the same bits; with bf16 they differ where the reference's
 do (the unfused path rounds the last sum to bf16 before the WTA). Then K5
 and K3. Each frame adds one to the counter ``sgm.wta_fused`` or
 ``sgm.wta_stored`` by the path it took; under a profiler the volume, each
-scan (a diagonal one also inside ``stepth/sgm/diagonal``), the fused last
-scan and K9 with its K4 open ``stepth/sgm/`` spans. The reference's
+scan (a diagonal one also inside ``stepth/sgm/diagonal``, and at ``D >
+256`` each also inside ``stepth/sgm/deep``), the fused last scan and K9
+with its K4 open ``stepth/sgm/`` spans. The reference's
 ``step_block``/``lane_tile`` and ``tile_rows`` only retile its TPU grid and
 cannot change an output: they are accepted and ignored here.
 
@@ -87,7 +91,8 @@ K10 = kernels.Kernel("K10", "K10 sgm_scan_carry", "stepth_sgm_scan_carry",
                      [PTR] * 5 + [INT] * 6 + [FLOAT] * 2, source=_SRC, replaces=f"{_REF}:398")
 
 _VOLUME_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-_MAX_D = 256  # eight path costs per lane of a scan warp
+_MAX_D = 512  # K7: sixteen path costs per lane of a scan warp (the deep tiling)
+_STAGED_MAX_D = 256  # K7's tiles up to here (eight path costs a lane); K8 and K10's limit
 _FUSED_MAX_D = 128  # the reference's fused-WTA limit, kept so bf16 outputs agree
 _RING_MIN_D = 128  # above it the staged tile's stage falls to 2 steps
 RING_BAND = 16  # chains a band of K7's ring (the kernel's kRingBand)
@@ -112,12 +117,12 @@ def volume_dtype(sgm: SGMConfig) -> torch.dtype:
     return _VOLUME_DTYPES[sgm.volume_dtype]
 
 
-def _check_volume(name: str, vol: torch.Tensor) -> None:
+def _check_volume(name: str, vol: torch.Tensor, max_d: int) -> None:
     if vol.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: expected f32 or bf16, got {vol.dtype}")
     kernels.check_cuda_tensor(name, vol, vol.dtype, 3)
-    if not 1 <= vol.shape[0] <= _MAX_D:
-        raise ValueError(f"{name}: the scan kernels take 1 ≤ D ≤ {_MAX_D}, got {vol.shape[0]}")
+    if not 1 <= vol.shape[0] <= max_d:
+        raise ValueError(f"{name}: this scan kernel takes 1 ≤ D ≤ {max_d}, got {vol.shape[0]}")
 
 
 # ---- K6 ------------------------------------------------------------------
@@ -226,7 +231,7 @@ def takes_ring(D: int, h: int, w: int, dy: int, dx: int, dtype: torch.dtype, sms
     16 bytes), and a :func:`ring_schedule` of no more blocks than the
     card's ``sms`` SMs, so that every block runs at once with all the slots
     one SM holds (wider images keep the staged kernel)."""
-    if not (dy != 0 and _RING_MIN_D < D <= _MAX_D and w * dtype.itemsize % 16 == 0
+    if not (dy != 0 and _RING_MIN_D < D <= _STAGED_MAX_D and w * dtype.itemsize % 16 == 0
             and all(p % 16 == 0 for p in ptrs)):
         return False
     starts, _ = ring_schedule(h, w, dy, dx)
@@ -304,7 +309,8 @@ def _sm_count(device: torch.device) -> int:
 def _launch_k7(vol, acc, out, dy: int, dx: int, p1: float, p2: float) -> None:
     """K7 onto ``out``: the ring where :func:`takes_ring` says so, with its
     schedule and one word a band of scratch for the bands' progress (the
-    launcher sets it), else the staged kernel; counts ``sgm.scan_ring`` or
+    launcher sets it), else the staged kernel (on its deep tiling at ``D >
+    256``); counts ``sgm.scan_ring``, ``sgm.scan_deep`` or
     ``sgm.scan_staged``."""
     D, h, w = vol.shape
     ptrs = [t.data_ptr() for t in (vol, acc, out) if t is not None]
@@ -317,7 +323,8 @@ def _launch_k7(vol, acc, out, dy: int, dx: int, p1: float, p2: float) -> None:
               out.data_ptr(), int(vol.dtype == torch.bfloat16), D, h, w, dy, dx, float(p1),
               float(p2), None if sched is None else sched.data_ptr(), blocks,
               None if prog is None else prog.data_ptr())
-    tracing.count("sgm.scan_staged" if sched is None else "sgm.scan_ring")
+    tracing.count("sgm.scan_ring" if sched is not None else
+                  "sgm.scan_deep" if D > _STAGED_MAX_D else "sgm.scan_staged")
 
 
 def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
@@ -329,7 +336,7 @@ def scan_direction(vol, acc, p1: float, p2: float, *, axis: int, reverse: bool,
     if vol.device.type == "cpu":
         return scan_direction_plain(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     dy, dx = _step(axis, reverse, shift)
-    _check_volume("scan volume", vol)
+    _check_volume("scan volume", vol, _MAX_D)
     _check_acc("scan acc", acc, vol)
     out = torch.empty_like(vol) if acc is None else acc
     _launch_k7(vol, acc, out, dy, dx, p1, p2)
@@ -361,7 +368,7 @@ def scan_direction_carry(vol, acc, carry0, p1: float, p2: float, *, reverse: boo
         return scan_direction_carry_plain(vol, acc, carry0, p1, p2, reverse=reverse,
                                           shift=shift)
     dy, dx = _step(1, reverse, shift)
-    _check_volume("carry scan volume", vol)
+    _check_volume("carry scan volume (K10, the sharded relay)", vol, _STAGED_MAX_D)
     _check_acc("carry scan acc", acc, vol)
     D, h, w = vol.shape
     if carry0 is not None:
@@ -451,7 +458,7 @@ def scan_wta_direction(vol, acc, p1: float, p2: float, cfg: MatchConfig):
     decode) on CUDA tensors, the plain version on CPU tensors."""
     if vol.device.type == "cpu":
         return scan_wta_direction_plain(vol, acc, p1, p2, cfg)
-    _check_volume("scan_wta volume", vol)
+    _check_volume("scan_wta volume", vol, _STAGED_MAX_D)
     kernels.check_cuda_tensor("scan_wta acc", acc, vol.dtype, 3)
     if acc.shape != vol.shape or acc.device != vol.device:
         raise ValueError(f"scan_wta: acc {tuple(acc.shape)} != volume {tuple(vol.shape)}")
@@ -485,10 +492,12 @@ def _match_pair_sgm(stages, left, right, cfg: MatchConfig, sgm: SGMConfig,
     p1, p2 = sgm_mod.penalties(cfg, sgm)
     fused_wta = sgm.directions in (4, 8) and cfg.num_disparities <= _FUSED_MAX_D
     tracing.count("sgm.wta_fused" if fused_wta else "sgm.wta_stored")
+    deep = cfg.num_disparities > _STAGED_MAX_D
     acc = None
     for axis, reverse, shift in dirs[:-1] if fused_wta else dirs:
-        with tracing.span("stepth/sgm/scan"), (tracing.span("stepth/sgm/diagonal") if shift
-                                               else contextlib.nullcontext()):
+        with (tracing.span("stepth/sgm/scan"),
+              tracing.span("stepth/sgm/diagonal") if shift else contextlib.nullcontext(),
+              tracing.span("stepth/sgm/deep") if deep else contextlib.nullcontext()):
             acc = stages.scan(vol, acc, p1, p2, axis=axis, reverse=reverse, shift=shift)
     if fused_wta:
         with tracing.span("stepth/sgm/scan_wta"):

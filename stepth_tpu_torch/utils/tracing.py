@@ -13,7 +13,8 @@ on a worker thread is never seen.) The program's spans are named
 ``stepth/...`` and sit on its served path: ``stepth/call`` around a model
 call, then ``coarse``, ``census``, ``plan``, ``refine``, ``post``,
 ``sgm/volume``, ``sgm/scan`` (``sgm/diagonal`` inside it on a diagonal
-scan), ``sgm/scan_wta``, ``sgm/wta`` and ``loader/take``.
+scan, ``sgm/deep`` inside that at D > 256), ``sgm/scan_wta``, ``sgm/wta``
+and ``loader/take``.
 """
 
 from __future__ import annotations

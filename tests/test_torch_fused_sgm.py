@@ -156,7 +156,7 @@ def test_directions_order_and_checks():
     (200, 375, 1240, 1, -1, torch.bfloat16, 0, True),  # 2,480-byte rows
     (200, 375, 1244, 1, 0, torch.bfloat16, 0, False),  # 2,488
     (256, 9, 4, 1, 1, torch.float32, 0, True),  # one 16-byte chunk a row
-    (257, 1080, 1920, 1, 0, torch.float32, 0, False),  # past the scan limit
+    (257, 1080, 1920, 1, 0, torch.float32, 0, False),  # past the ring's limit
     (256, 1080, 1920, 1, 0, torch.float32, 8, False),  # a tensor 8 bytes into its storage
     (256, 1, 2112, 1, 0, torch.float32, 0, True),  # 132 bands: a block an SM
     (256, 1, 2128, 1, 0, torch.float32, 0, False),  # 133: the staged kernel

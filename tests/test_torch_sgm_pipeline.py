@@ -68,3 +68,19 @@ def test_sgm_pallas_backend_matches_reference(rng):
     model = from_dict(StereoModel, dataclasses.asdict(ref))
     want = pallas_sgm.match_pair_sgm_pallas(left, right, ref.match, ref.sgm, interpret=True)
     assert_results_equal(want, model(left, right, device="cpu"))
+
+
+def test_stored_path_past_256_matches_xla_sgm(rng):
+    """8 directions at D = 290, past K7's tiles up to 256 (the deep tiling
+    on the card): every direction stored, then K9 and K4, equal to the
+    JAX package's XLA ``match_pair_sgm`` (the interpret-mode Pallas twin
+    takes half a minute at this D)."""
+    left, right = int_pair(rng, h=8, w=320, shift=270)
+    cfg = dict(num_disparities=290, window=5, cost="census", census_window=7,
+               lr_threshold=1.0)
+    want = ref_sgm.match_pair_sgm(left, right, RefMatchConfig(**cfg),
+                                  ref_sgm.SGMConfig(directions=8))
+    got = fused_sgm.match_pair_sgm_fused(left, right, MatchConfig(**cfg),
+                                         SGMConfig(directions=8), device="cpu")
+    assert_results_equal(want, got)
+    assert (np_(got.disparity) > 256).any()
